@@ -8,22 +8,30 @@ with a non-zero exit code:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, the TF32 flags;
-2. build: nvcc builds csrc/layout_compose.cu for sm_90a;
+2. build: nvcc builds csrc/layout_compose.cu and csrc/conv3x3.cu for
+   sm_90a, one process each, started together;
 3. kernels: both entries of the layout-compose kernel against their plain
    PyTorch version on the card (flagship shapes, a ragged case, degenerate
    boxes with empty object slots), then their time beside the plain
    version's at the flagship batch-128 shape;
-4. the learned checkpoint artifacts/trained_coco64.pt through the
-   run_model CLI on the card, held against the same engine on the CPU
-   (plain path) by u8 PSNR;
-5. vg128 serving: the flagship generator (random weights from a seed)
-   answers generate requests of 1, 3 and 8 graphs, agrees with the CPU
-   engine on a small input, and its batch-128 forward is timed in float32
-   and in bf16 / 'split' mode.
+4. conv: both entries of the 3x3 conv kernel (bf16, and the turbo tier's
+   int8) against their plain versions on the turbo path's shapes, the
+   CRN shapes of the TPU prototype and a ragged case, then their time at
+   batch 128 beside the plain versions and beside cuDNN's bf16 conv;
+5. the learned checkpoint artifacts/trained_coco64.pt through the
+   run_model CLI on the card, in float32 and on the int8 turbo tier with a
+   calibration file made on the card, each held against the CPU engine by
+   u8 PSNR;
+6. vg128 serving: the flagship generator (random weights from a seed)
+   answers generate requests of 1, 3 and 8 graphs in float32, bf16 /
+   'split' and the turbo tier, agrees with the CPU engines on a small
+   input, and its batch-128 forward is timed in each mode.
 
-The line before the last is a JSON summary of the kernels the serving path
-launched; the last line is {"ok": true, "device": {...}}.  It needs no
-network and no JAX.
+Each path (the turbo CLI, the vg128 requests, the turbo requests) runs
+with the kernels' launch counts set to 0 just before it and read just
+after.  The line before the last is a JSON summary of every ported kernel
+with its launches on those paths; the last line is
+{"ok": true, "device": {...}}.  It needs no network and no JAX.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "sg2im_tpu_torch/csrc/layout_compose.cu"
+CONV_SOURCE = "sg2im_tpu_torch/csrc/conv3x3.cu"
 KERNEL_BAR = 1e-5  # max abs error vs the plain version (tests/test_pallas.py)
 PSNR_BAR = 40.0    # u8 dB, the fidelity gate of the JAX package
 
@@ -75,15 +84,19 @@ def phase_environment(torch):
 
 
 def phase_build():
+    """nvcc of every kernel source, all started together."""
     from sg2im_tpu_torch.ops import _build
 
-    path, seconds, log = _build.build()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} -> "
-          f"{os.path.relpath(path, REPO)} in {seconds:.2f} s")
-    for ln in ptxas:
-        print(f"[build] {ln}")
+    t0 = time.perf_counter()
+    built = _build.build()
+    wall = time.perf_counter() - t0
+    for source, (path, seconds, log) in built.items():
+        print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} {source} -> "
+              f"{os.path.relpath(path, REPO)} in {seconds:.2f} s")
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln or "smem" in ln:
+                print(f"[build]   {ln.strip()}")
+    print(f"[build] {len(built)} sources in {wall:.2f} s wall")
     _build.load_library()
 
 
@@ -224,23 +237,206 @@ def phase_kernels(torch):
     return errs, times
 
 
-def phase_checkpoint(torch):
+# name: (N, H, W, Cin, Co).  The turbo path's four int8 convs at vg128 with
+# the default band, the CRN shapes of the TPU prototype
+# (scripts/proto_pallas_conv.py:162-168), and a ragged case (Cin not a
+# multiple of a chunk or of 16 bytes, Co not a multiple of a tile).
+TURBO_CONVS = {
+    "s3 conv0 feats 32x32 512->256": (32, 32, 512, 256),
+    "s3 conv1 32x32 256->256": (32, 32, 256, 256),
+    "s4 conv0 feats 64x64 256->128": (64, 64, 256, 128),
+    "s4 conv1 64x64 128->128": (64, 64, 128, 128),
+}
+CONV_CASES = {
+    **{f"turbo {k} N8": (8,) + v for k, v in TURBO_CONVS.items()},
+    "K4 s5 conv0 128x128 288->64 N8": (8, 128, 128, 288, 64),
+    "K4 s5 conv1 128x128 64->64 N8": (8, 128, 128, 64, 64),
+    "K4 s4 conv0 64x64 416->128 N8": (8, 64, 64, 416, 128),
+    "K4 s3 conv0 32x32 672->256 N8": (8, 32, 32, 672, 256),
+    "ragged 13x29 36->20 N2": (2, 13, 29, 36, 20),
+}
+CONV_BF16_BAR = 1e-4  # f32 output: max abs error / max |plain|
+
+
+def conv_inputs(torch, N, H, W, Cin, Co, seed, device="cuda"):
+    """int8 and bf16 operands of one shape from a seed: x channels_last,
+    weights OIHW, dq / scale / bias (Co,) float32."""
+    gen = torch.Generator().manual_seed(seed)
+    cl = torch.channels_last
+    x8 = torch.randint(-127, 128, (N, Cin, H, W), generator=gen,
+                       dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (Co, Cin, 3, 3), generator=gen,
+                       dtype=torch.int8)
+    dq = torch.rand(Co, generator=gen) * 1e-4 + 1e-6
+    xb = torch.randn((N, Cin, H, W), generator=gen).to(torch.bfloat16)
+    wb = (torch.randn((Co, Cin, 3, 3), generator=gen)
+          * (2.0 / (9 * Cin)) ** 0.5).to(torch.bfloat16)
+    scale = torch.rand(Co, generator=gen) + 0.5
+    bias = torch.randn(Co, generator=gen) * 0.1
+    return {"x8": x8.to(device).contiguous(memory_format=cl),
+            "w8": w8.to(device), "dq": dq.to(device),
+            "xb": xb.to(device).contiguous(memory_format=cl),
+            "wb": wb.to(device), "scale": scale.to(device),
+            "bias": bias.to(device)}
+
+
+def ulps(torch, a, b) -> int:
+    """Largest distance in float32 ulps between same-signed a and b."""
+    diff = a.contiguous().view(torch.int32).long() \
+        - b.contiguous().view(torch.int32).long()
+    return int(diff.abs().max().item())
+
+
+def check_conv_case(torch, name, N, H, W, Cin, Co, seed=0):
+    """Both conv entries against their plain versions on one input: s8
+    bit-equal or within 1 ulp; bf16 entry with f32 output within
+    CONV_BF16_BAR * max|plain|, with bf16 output within one bf16 rounding.
+    Returns {entry: max abs error}."""
+    from sg2im_tpu_torch.ops import conv_kernel as ck
+
+    t = conv_inputs(torch, N, H, W, Cin, Co, seed)
+    s8 = ck.conv3x3_int8(t["x8"], t["w8"], t["dq"])
+    s8_ref = ck.conv3x3_int8_ref(t["x8"], t["w8"], t["dq"])
+    plain = ck.conv3x3_ref(t["xb"], t["wb"])
+    plain_ep = ck.conv3x3_ref(t["xb"], t["wb"], t["scale"], t["bias"])
+    got = ck.conv3x3(t["xb"], t["wb"])
+    got_ep = ck.conv3x3(t["xb"], t["wb"], t["scale"], t["bias"])
+    got_ep16 = ck.conv3x3(t["xb"], t["wb"], t["scale"], t["bias"],
+                          out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    for what, out in (("s8", s8), ("bf16", got), ("bf16+epilogue", got_ep),
+                      ("bf16+epilogue bf16-out", got_ep16)):
+        if out.shape != (N, Co, H, W) or not torch.isfinite(out).all():
+            fail(f"conv {what} entry gave {tuple(out.shape)} or non-finite "
+                 f"values on {name}")
+    s8_err = (s8 - s8_ref).abs().max().item()
+    s8_ulp = ulps(torch, s8, s8_ref)
+    s8_equal = bool(torch.equal(s8, s8_ref))
+    errs = {"s8": s8_err, "bf16": 0.0}
+    line = [f"[conv] {name}: s8 max_abs_err={s8_err:.3e} "
+            f"({'bit-equal' if s8_equal else f'{s8_ulp} ulp'}, max|out| "
+            f"{s8_ref.abs().max().item():.3e})"]
+    if s8_ulp > 1:
+        fail(f"s8 entry off by {s8_ulp} ulp on {name}")
+    for what, out, ref in (("bf16", got, plain),
+                           ("bf16+epilogue", got_ep, plain_ep)):
+        err = (out - ref).abs().max().item()
+        rel = err / max(ref.abs().max().item(), 1e-30)
+        errs["bf16"] = max(errs["bf16"], err)
+        line.append(f"{what} max_abs_err={err:.3e} (rel {rel:.2e})")
+        if rel > CONV_BF16_BAR:
+            fail(f"conv {what} entry disagrees with the plain version on "
+                 f"{name}: {rel:.3e} > {CONV_BF16_BAR} of max|plain|")
+    bf_err = (got_ep16.float() - plain_ep).abs()
+    bound = plain_ep.abs() * 2.0 ** -8 \
+        + CONV_BF16_BAR * plain_ep.abs().max()
+    line.append(f"bf16-out max_abs_err={bf_err.max().item():.3e}")
+    if not bool((bf_err <= bound).all()):
+        fail(f"conv bf16 output off by more than one rounding on {name}")
+    print(" ".join(line))
+    return errs
+
+
+def phase_conv(torch, card):
+    """The conv kernel's entries against their plain versions, then their
+    time at batch 128 on the turbo path's shapes beside the plain versions
+    and beside cuDNN's bf16 conv of the same shape."""
+    import torch.nn.functional as F
+
+    from sg2im_tpu_torch.ops import conv_kernel as ck
+
+    errs = {"s8": 0.0, "bf16": 0.0}
+    with torch.inference_mode():
+        for i, (name, case) in enumerate(CONV_CASES.items()):
+            for entry, err in check_conv_case(torch, name, *case,
+                                              seed=i).items():
+                errs[entry] = max(errs[entry], err)
+        times = {"s8": 0.0, "s8_plain": 0.0, "bf16": 0.0, "bf16_plain": 0.0}
+        for name, (H, W, Cin, Co) in TURBO_CONVS.items():
+            t = conv_inputs(torch, 128, H, W, Cin, Co, seed=11)
+            ms = {
+                "s8": _time_ms(torch, lambda: ck.conv3x3_int8(
+                    t["x8"], t["w8"], t["dq"])),
+                # float64 convolution: few iterations.
+                "s8_plain": _time_ms(torch, lambda: ck.conv3x3_int8_ref(
+                    t["x8"], t["w8"], t["dq"]), iters=2, warmup=1),
+                "bf16": _time_ms(torch, lambda: ck.conv3x3(
+                    t["xb"], t["wb"], t["scale"], t["bias"])),
+                "bf16_plain": _time_ms(torch, lambda: ck.conv3x3_ref(
+                    t["xb"], t["wb"], t["scale"], t["bias"]), iters=5,
+                    warmup=1),
+                "cudnn_bf16": _time_ms(torch, lambda: F.conv2d(
+                    t["xb"], t["wb"], padding=1)),
+            }
+            for k in times:
+                times[k] += ms[k]
+            tops = 2 * 128 * H * W * 9 * Cin * Co / 1e9
+            print(f"[conv] b128 {name} (ms): s8-entry {ms['s8']:.4f} "
+                  f"({tops / ms['s8']:.1f} TOP/s) vs plain f64 "
+                  f"{ms['s8_plain']:.4f}; bf16-entry+epilogue "
+                  f"{ms['bf16']:.4f} ({tops / ms['bf16']:.1f} TFLOP/s) vs "
+                  f"plain f32 {ms['bf16_plain']:.4f}; cuDNN bf16 conv "
+                  f"{ms['cudnn_bf16']:.4f} ({tops / ms['cudnn_bf16']:.1f} "
+                  f"TFLOP/s); on {card}")
+            del t
+    print(f"[conv] b128 sum of the four turbo convs (ms): s8-entry "
+          f"{times['s8']:.4f} vs plain {times['s8_plain']:.4f}; bf16-entry "
+          f"{times['bf16']:.4f} vs plain {times['bf16_plain']:.4f}")
+    return errs, times
+
+
+def kernel_wrappers():
+    """{kernels-line name: wrapper}; each wrapper counts its launches."""
+    from sg2im_tpu_torch.ops import conv_kernel as ck
+    from sg2im_tpu_torch.ops import layout_kernel as lk
+
+    return {"layout_compose_boxes": lk.layout_compose,
+            "layout_compose_weights": lk.layout_compose_weights,
+            "conv3x3_bf16": ck.conv3x3,
+            "conv3x3_s8": ck.conv3x3_int8}
+
+
+def reset_launches():
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: w.launches for name, w in kernel_wrappers().items()}
+
+
+def add_launches(total: dict, path: dict) -> None:
+    for name, n in path.items():
+        total[name] = total.get(name, 0) + n
+
+
+def cli_images(args) -> np.ndarray:
+    """Run the run_model CLI into a temporary directory; its PNGs."""
+    from PIL import Image
+
     from sg2im_tpu_torch.cli import run_model
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        rc = run_model.main(args + ["--output_dir", out_dir])
+        if rc != 0:
+            fail(f"run_model {' '.join(args)} exited {rc}")
+        names = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+        return np.stack([np.asarray(Image.open(os.path.join(out_dir, f)))
+                         for f in names])
+
+
+def phase_checkpoint(torch, launches):
+    """The learned checkpoint through the CLI on the card, in f32 and on
+    the int8 turbo tier (scales calibrated on the card on half of the
+    graphs, saved, and handed to the CLI and to a CPU engine), each held
+    against the CPU engine by u8 PSNR."""
     from sg2im_tpu_torch.inference import InferenceEngine
 
     ckpt = os.path.join(REPO, "artifacts", "trained_coco64.pt")
     graphs = os.path.join(REPO, "artifacts", "trained_scene_graphs.json")
-    with tempfile.TemporaryDirectory() as out_dir:
-        rc = run_model.main(["--checkpoint", ckpt, "--scene_graphs_json",
-                             graphs, "--output_dir", out_dir, "--noise",
-                             "zeros", "--device", "cuda"])
-        if rc != 0:
-            fail(f"run_model exited {rc}")
-        from PIL import Image
-
-        names = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
-        cli_u8 = np.stack([np.asarray(Image.open(os.path.join(out_dir, f)))
-                           for f in names])
+    common = ["--checkpoint", ckpt, "--scene_graphs_json", graphs,
+              "--noise", "zeros", "--device", "cuda"]
+    cli_u8 = cli_images(common)
     with open(graphs) as f:
         scene_graphs = json.load(f)
     gpu = InferenceEngine.from_torch_checkpoint(ckpt, device="cuda")
@@ -251,11 +447,39 @@ def phase_checkpoint(torch):
         fail(f"CLI wrote {cli_u8.shape}, expected {c_u8.shape}")
     err = (g_out["imgs"].cpu() - c_out["imgs"]).abs().max().item()
     p_cli, p_eng = psnr_u8(cli_u8, c_u8), psnr_u8(g_u8, c_u8)
-    print(f"[checkpoint] trained_coco64 {len(names)} graphs, f32: CLI u8 "
+    print(f"[checkpoint] trained_coco64 {len(cli_u8)} graphs, f32: CLI u8 "
           f"PSNR {p_cli:.2f} dB, engine u8 PSNR {p_eng:.2f} dB, f32 "
           f"max_abs_err {err:.3e} (GPU vs CPU plain path)")
     if min(p_cli, p_eng) < PSNR_BAR:
         fail(f"trained checkpoint PSNR below {PSNR_BAR} dB")
+
+    # The turbo tier through the CLI with a calibration file.
+    turbo = InferenceEngine.from_torch_checkpoint(ckpt, device="cuda",
+                                                  quantize="int8")
+    turbo.calibrate(scene_graphs[: len(scene_graphs) // 2], noise="zeros")
+    with tempfile.TemporaryDirectory() as tmp:
+        cal = os.path.join(tmp, "calibration.json")
+        turbo.save_calibration(cal)
+        reset_launches()
+        t_cli = cli_images(common + ["--quantize", "int8",
+                                     "--calibration_file", cal])
+        path = read_launches()
+        cpu_turbo = InferenceEngine.from_torch_checkpoint(
+            ckpt, device="cpu", quantize="int8")
+        cpu_turbo.load_calibration(cal)
+    add_launches(launches, path)
+    ct_u8, _ = cpu_turbo.generate(scene_graphs, noise="zeros")
+    p_turbo, p_vs_f32 = psnr_u8(t_cli, ct_u8), psnr_u8(t_cli, c_u8)
+    print(f"[checkpoint] trained_coco64 turbo int8 (band {turbo.quant_band()}"
+          f", tags {len(turbo.expected_quant_tags())}, calibrated on "
+          f"{len(scene_graphs) // 2} of {len(scene_graphs)} graphs): CLI vs "
+          f"CPU turbo engine u8 PSNR {p_turbo:.2f} dB; vs CPU f32 "
+          f"{p_vs_f32:.2f} dB; launches {path}")
+    if path["conv3x3_s8"] == 0:
+        fail("the turbo CLI never launched the int8 conv kernel")
+    if p_turbo < PSNR_BAR:
+        fail(f"turbo CLI disagrees with the CPU turbo engine: "
+             f"{p_turbo:.2f} dB")
 
 
 def vg128_config():
@@ -288,28 +512,24 @@ def random_graphs(vocab, n, rng, n_objs=10, n_rels=21):
     return graphs
 
 
-def phase_vg128(torch, card):
+def phase_vg128(torch, card, launches):
     from sg2im_tpu_torch.data import encode_scene_graphs
     from sg2im_tpu_torch.inference import InferenceEngine, full_fp32
     from sg2im_tpu_torch.models import Sg2ImGenerator
-    from sg2im_tpu_torch.ops import layout_kernel as lk
 
     vocab, kwargs = vg128_config()
     model = Sg2ImGenerator(vocab, **kwargs)
     model.reset_parameters(torch.Generator().manual_seed(0))
     state = model.state_dict()
+    bf16 = dict(compute_dtype=torch.bfloat16, crn_mode="split")
     engines = {
         "f32": InferenceEngine(vocab, kwargs, state, device="cuda"),
         "bf16/split": InferenceEngine(vocab, kwargs, state, device="cuda",
-                                      compute_dtype=torch.bfloat16,
-                                      crn_mode="split"),
+                                      **bf16),
     }
     rng = np.random.RandomState(0)
 
-    # The serving path: generate requests, counting kernel launches.
-    lk.layout_compose.launches = 0
-    lk.layout_compose_weights.launches = 0
-    for mode, engine in engines.items():
+    def serve(mode, engine):
         for n in (1, 3, 8):
             imgs, out = engine.generate(random_graphs(vocab, n, rng),
                                         seed=n)
@@ -318,26 +538,61 @@ def phase_vg128(torch, card):
             for k, v in out.items():
                 if not torch.isfinite(v).all():
                     fail(f"{mode}: non-finite {k} for {n} graphs")
-    torch.cuda.synchronize()
-    launches = {"layout_compose_boxes": lk.layout_compose.launches,
-                "layout_compose_weights": lk.layout_compose_weights.launches}
+        torch.cuda.synchronize()
+
+    # The serving path: generate requests, counting kernel launches.
+    reset_launches()
+    for mode, engine in engines.items():
+        serve(mode, engine)
+    path = read_launches()
+    add_launches(launches, path)
     print(f"[vg128] generate requests of 1, 3, 8 graphs in f32 and "
-          f"bf16/split: outputs finite; kernel launches {launches}")
-    if launches["layout_compose_boxes"] == 0:
+          f"bf16/split: outputs finite; kernel launches {path}")
+    if path["layout_compose_boxes"] == 0:
         fail("the serving path never launched the layout-compose kernel")
 
-    # Agreement with the CPU engine (plain path) on a small input.
+    # The turbo path: calibrate, then requests, counting kernel launches.
+    turbo = InferenceEngine(vocab, kwargs, state, device="cuda",
+                            quantize="int8", **bf16)
+    turbo.calibrate(random_graphs(vocab, 16, rng), seed=100)
+    reset_launches()
+    serve("turbo", turbo)
+    path = read_launches()
+    add_launches(launches, path)
+    print(f"[vg128] turbo int8 bf16/split (band {turbo.quant_band()}, tags "
+          f"{turbo.expected_quant_tags()}): requests of 1, 3, 8 graphs "
+          f"finite; kernel launches {path}")
+    if path["conv3x3_s8"] == 0 or path["layout_compose_boxes"] == 0:
+        fail("the turbo path did not launch both of its kernels")
+    engines["turbo bf16/split"] = turbo
+
+    # Agreement with the CPU engines on a small input with the same
+    # explicit noise: the plain path in f32, and the turbo tier in
+    # bf16/split at the same calibration file.
     small = random_graphs(vocab, 2, rng)
+    small_noise = rng.randn(2, 128, 128, 32).astype(np.float32)
     cpu = InferenceEngine(vocab, kwargs, state, device="cpu")
-    c_u8, c_out = cpu.generate(small, noise="zeros")
+    cpu_turbo = InferenceEngine(vocab, kwargs, state, device="cpu",
+                                quantize="int8", **bf16)
+    with tempfile.TemporaryDirectory() as tmp:
+        cal = os.path.join(tmp, "calibration.json")
+        turbo.save_calibration(cal)
+        cpu_turbo.load_calibration(cal)
+    c_u8, c_out = cpu.generate(small, noise=small_noise)
+    ct_u8, ct_out = cpu_turbo.generate(small, noise=small_noise)
     for mode, engine in engines.items():
-        g_u8, g_out = engine.generate(small, noise="zeros")
-        p = psnr_u8(g_u8, c_u8)
-        err = (g_out["imgs"].float().cpu() - c_out["imgs"]).abs().max().item()
-        print(f"[vg128] {mode} vs CPU float32 on 2 graphs: u8 PSNR "
-              f"{p:.2f} dB, max_abs_err {err:.3e}")
+        g_u8, g_out = engine.generate(small, noise=small_noise)
+        ref_u8, ref_out = ((ct_u8, ct_out) if engine is turbo
+                           else (c_u8, c_out))
+        p = psnr_u8(g_u8, ref_u8)
+        err = (g_out["imgs"].float().cpu() - ref_out["imgs"]).abs().max()
+        ref = "CPU turbo bf16/split" if engine is turbo else "CPU float32"
+        extra = (f"; vs CPU float32 {psnr_u8(g_u8, c_u8):.2f} dB"
+                 if engine is turbo else "")
+        print(f"[vg128] {mode} vs {ref} on 2 graphs: u8 PSNR {p:.2f} dB, "
+              f"max_abs_err {err.item():.3e}{extra}")
         if p < PSNR_BAR:
-            fail(f"vg128 {mode} disagrees with the CPU engine: {p:.2f} dB")
+            fail(f"vg128 {mode} disagrees with {ref}: {p:.2f} dB")
 
     # Batch-128 forward throughput and peak memory.
     batch = encode_scene_graphs(random_graphs(vocab, 128, rng), vocab,
@@ -369,7 +624,6 @@ def phase_vg128(torch, card):
               f"{ms:.2f} ms (median of 5 windows of 3, runs "
               f"{[round(w * 1e3, 2) for w in windows]}), peak "
               f"{peak:.2f} GiB allocated, on {card}")
-    return launches
 
 
 def main() -> int:
@@ -382,18 +636,27 @@ def main() -> int:
     card = phase_environment(torch)
     phase_build()
     errs, times = phase_kernels(torch)
-    phase_checkpoint(torch)
-    launches = phase_vg128(torch, card)
-    summary = {"kernels": [{
-        "name": "layout_compose_boxes",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": "sg2im_tpu/ops/pallas/layout_kernel.py:241",
-        "launches": launches["layout_compose_boxes"],
-        "max_abs_err": errs["boxes"],
-        "ms": times["boxes"],
-        "plain_ms": times["boxes_plain"],
-    }]}
+    conv_errs, conv_times = phase_conv(torch, card)
+    launches = {}
+    phase_checkpoint(torch, launches)
+    phase_vg128(torch, card, launches)
+    layout_src = "sg2im_tpu/ops/pallas/layout_kernel.py"
+    conv_replaces = "scripts/proto_pallas_conv.py:122"
+    rows = [
+        ("layout_compose_boxes", KERNEL_SOURCE, f"{layout_src}:241",
+         errs["boxes"], times["boxes"], times["boxes_plain"]),
+        ("layout_compose_weights", KERNEL_SOURCE, f"{layout_src}:89",
+         errs["weights"], times["weights"], times["weights_plain"]),
+        ("conv3x3_bf16", CONV_SOURCE, conv_replaces, conv_errs["bf16"],
+         conv_times["bf16"], conv_times["bf16_plain"]),
+        ("conv3x3_s8", CONV_SOURCE, conv_replaces, conv_errs["s8"],
+         conv_times["s8"], conv_times["s8_plain"]),
+    ]
+    summary = {"kernels": [
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches.get(name, 0),
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        for name, source, replaces, err, ms, plain_ms in rows]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ The port's modules keep upstream's parameter names, so a reference
 checkpoint's ``model_state`` loads with ``load_state_dict(strict=True)`` as
 it is.  ``state_dict_from_jax`` maps the JAX package's flax variable trees
 (numpy or JAX arrays) onto the same names, the inverse of the JAX
-package's own converter (``sg2im_tpu/ckpt/torch_convert.py``).
+package's own converter (``sg2im_tpu/ckpt/torch_convert.py``);
+``calibration_from_jax`` carries the int8 tier's activation scales across.
 """
 
 from __future__ import annotations
@@ -72,6 +73,15 @@ def state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
         state[f"{_torch_prefix(path[:-1])}.{stat_names[path[-1]]}"] = \
             torch.from_numpy(np.array(arr, np.float32))
     return state
+
+
+def calibration_from_jax(quant_collection) -> dict[str, float]:
+    """The JAX engine's int8 scales (``variables['quant']``, a nested dict
+    of float32 scalars) -> the port's {tag: float}, tags joined with '/'
+    as in the calibration files; install with
+    ``InferenceEngine.set_calibration``."""
+    return {"/".join(path): float(np.float32(np.asarray(v)))
+            for path, v in _leaves(quant_collection)}
 
 
 def clean_model_kwargs(model_kwargs) -> tuple[dict, dict | None]:

@@ -9,6 +9,9 @@ Example:
         --checkpoint artifacts/trained_coco64.pt \
         --scene_graphs_json artifacts/trained_scene_graphs.json \
         --output_dir outputs --noise zeros
+    # the int8 turbo tier at scales saved by save_calibration:
+    #   ... --bf16_compute 1 --crn_mode split --quantize int8 \
+    #   --calibration_file calibration.json
 """
 
 from __future__ import annotations
@@ -42,6 +45,16 @@ def build_parser():
                         choices=["legacy", "split"],
                         help="CRN stage conv0 formulation; 'split' never "
                              "stores the stage's wide concat")
+    parser.add_argument("--quantize", default=None, choices=["int8"],
+                        help="turbo tier: the high-resolution CRN stage "
+                             "convs run int8 at calibrated activation "
+                             "scales (an accuracy trade; checkpoints are "
+                             "unaffected)")
+    parser.add_argument("--calibration_file", default=None,
+                        help="int8 tier: load activation scales saved by "
+                             "save_calibration (either package); without "
+                             "it the engine calibrates on the request "
+                             "batch itself")
     return parser
 
 
@@ -49,6 +62,9 @@ def main(args=None):
     args = build_parser().parse_args(args)
     if not os.path.isfile(args.checkpoint):
         print(f'ERROR: Checkpoint file "{args.checkpoint}" not found')
+        return 1
+    if args.calibration_file and args.quantize != "int8":
+        print("ERROR: --calibration_file requires --quantize int8")
         return 1
     os.makedirs(args.output_dir, exist_ok=True)
 
@@ -60,7 +76,10 @@ def main(args=None):
     engine = InferenceEngine.from_torch_checkpoint(
         args.checkpoint, device=args.device,
         compute_dtype=torch.bfloat16 if args.bf16_compute else None,
-        crn_mode=None if args.crn_mode == "legacy" else args.crn_mode)
+        crn_mode=None if args.crn_mode == "legacy" else args.crn_mode,
+        quantize=args.quantize)
+    if args.calibration_file:
+        engine.load_calibration(args.calibration_file)
     with open(args.scene_graphs_json) as f:
         scene_graphs = json.load(f)
     if isinstance(scene_graphs, dict):

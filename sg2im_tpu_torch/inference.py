@@ -17,11 +17,21 @@ with ``seed``.  A row's noise therefore does not depend on the padded batch
 size: the same graph at the same position with the same seed gives the same
 image in every pad bucket.  The values differ between device types (CPU
 and CUDA generators differ) and from the JAX package's threefry draws.
+
+int8 turbo tier (``quantize='int8'``): the CRN's high-resolution stages
+run on the int8 conv kernel at calibrated activation scales.  An
+uncalibrated engine calibrates on its first batch (whose images are valid
+turbo output); :meth:`InferenceEngine.calibrate` records or extends the
+scales on chosen graphs, and ``save_calibration`` / ``load_calibration``
+keep them in the JAX package's JSON format, so a file written by either
+package loads into the other.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import warnings
 
 import numpy as np
 import torch
@@ -62,8 +72,12 @@ def seeded_noise(n: int, shape, seed: int, device) -> torch.Tensor:
 class InferenceEngine:
     """A generator on one device plus the host-side encoding around it."""
 
+    CALIBRATION_FORMAT = "sg2im_tpu.int8_calibration.v1"
+    _QUANT_KNOBS = ("head", "min_res", "max_res")
+
     def __init__(self, vocab, model_kwargs, state_dict, *, device,
-                 pad_align: int = 8, compute_dtype=None, crn_mode=None):
+                 pad_align: int = 8, compute_dtype=None, crn_mode=None,
+                 quantize=None, quant_opts=None):
         """
         Args:
           vocab: dict with object/predicate name <-> index maps.
@@ -73,6 +87,10 @@ class InferenceEngine:
           pad_align: object and triple slots are padded to a multiple.
           compute_dtype: None (float32) or torch.bfloat16 (bf16 CRN).
           crn_mode: None ('legacy') or 'split'.
+          quantize: None or 'int8' (the turbo tier).
+          quant_opts: the tier's band, merged key by key into the default
+            {'max_res': 64}: 'head' (bool), 'min_res', 'max_res' (layout
+            resolutions); a None value restores the model's default.
         """
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -85,6 +103,19 @@ class InferenceEngine:
             self.model_kwargs["compute_dtype"] = compute_dtype
         if crn_mode is not None:
             self.model_kwargs["crn_mode"] = crn_mode
+        if quantize is not None:
+            if quantize != "int8":
+                raise ValueError(f"unknown quantize tier {quantize!r}")
+            self.model_kwargs["crn_quant"] = quantize
+            opts = {"max_res": 64}
+            opts.update(dict(quant_opts or {}))
+            for k, v in opts.items():
+                if k not in self._QUANT_KNOBS:
+                    raise ValueError(f"unknown quant_opts key {k!r}")
+                if v is not None:
+                    self.model_kwargs[f"crn_quant_{k}"] = v
+        elif quant_opts:
+            raise ValueError("quant_opts requires quantize='int8'")
         self.pad_align = pad_align
         model = Sg2ImGenerator(vocab, **self.model_kwargs)
         model.load_state_dict(state_dict, strict=True)
@@ -124,8 +155,138 @@ class InferenceEngine:
             out[: arr.shape[0]] = arr.to(self.device).permute(0, 3, 1, 2)
         return out.contiguous(memory_format=torch.channels_last)
 
+    # -- int8 turbo tier: calibration ---------------------------------------
+
+    @property
+    def _quantized(self) -> bool:
+        return self.model_kwargs.get("crn_quant") is not None
+
+    @property
+    def _act_scales(self):
+        return self.model.refinement_net.act_scales
+
+    @property
+    def calibrated(self) -> bool:
+        """int8 tier only: have the activation scales been recorded?"""
+        return self._act_scales.values is not None
+
+    def _require_tier(self, what: str):
+        if not self._quantized:
+            raise ValueError(f"{what}() requires quantize='int8'")
+
+    @staticmethod
+    def _warn_zero_scales(scales):
+        """An exactly-zero scale means the calibration data never activated
+        that tensor; real traffic through it would quantize against the
+        1e-30 floor and collapse to ~0.  Warn (it can be legitimate on
+        untrained models whose degenerate boxes zero a tensor)."""
+        zeros = sorted(k for k, v in scales.items() if float(v) == 0.0)
+        if zeros:
+            warnings.warn(
+                "int8 calibration recorded ZERO activation scale(s) at "
+                f"{zeros}: the calibration batch never activated those "
+                "tensors (unrepresentative data, e.g. trivial or empty "
+                "scene graphs); real traffic through them will collapse "
+                "to ~0 after dequantization.  Re-run calibrate() on "
+                "representative scene graphs.", stacklevel=3)
+
+    def calibrate(self, scene_graphs, noise=None, seed: int = 0):
+        """Record the int8 tier's activation scales on representative
+        scene graphs, or extend them (running max) if already calibrated.
+        Later out-of-range activations clip at +-127."""
+        self._require_tier("calibrate")
+        self.generate(scene_graphs, noise=noise, seed=seed, deprocess=False,
+                      _calibrate=True)
+
+    def quant_band(self) -> dict:
+        """The tier's band (None: the model default), saved with the
+        scales so that a file cannot apply to another band."""
+        return {k: self.model_kwargs.get(f"crn_quant_{k}")
+                for k in self._QUANT_KNOBS}
+
+    def expected_quant_tags(self) -> list[str]:
+        """The scale tags this engine's model and band record."""
+        H = self.model.image_size[0]
+        return self.model.refinement_net.quant_tags(H)
+
+    def set_calibration(self, scales: dict):
+        """Install {tag: float} scales after checking the tag set against
+        this model and band; zero scales warn."""
+        self._require_tier("set_calibration")
+        expected = set(self.expected_quant_tags())
+        missing = sorted(expected - set(scales))
+        extra = sorted(set(scales) - expected)
+        if missing or extra:
+            raise ValueError(f"scale tags do not match this model/band "
+                             f"(missing {missing}, unexpected {extra})")
+        self._act_scales.values = {
+            k: torch.tensor(float(v), dtype=torch.float32,
+                            device=self.device) for k, v in scales.items()}
+        self._warn_zero_scales(scales)
+
+    def scales(self) -> dict[str, float]:
+        """The calibrated scales as {tag: float} (float32 values)."""
+        if not self.calibrated:
+            raise ValueError(
+                "engine is not calibrated: call calibrate() on "
+                "representative scene graphs (or serve a batch) first")
+        return {k: float(np.float32(v.item()))
+                for k, v in self._act_scales.values.items()}
+
+    def save_calibration(self, path):
+        """Write the scales as JSON in the JAX package's format: the band
+        and one float per tag.  Python's shortest float repr is exact for
+        a float32 value, so a save / load cycle is bit-exact."""
+        self._require_tier("save_calibration")
+        payload = {"format": self.CALIBRATION_FORMAT,
+                   "quant_band": self.quant_band(),
+                   "scales": self.scales()}
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=1, sort_keys=True)
+
+    def load_calibration(self, path):
+        """Load scales written by ``save_calibration`` (either package),
+        after checking the format, the band and the tag set; nothing
+        changes if a check fails."""
+        self._require_tier("load_calibration")
+        with open(path) as f:
+            payload = json.load(f)
+        fmt = payload.get("format")
+        if fmt != self.CALIBRATION_FORMAT:
+            raise ValueError(
+                f"{path}: not an int8 calibration file (format={fmt!r}, "
+                f"expected {self.CALIBRATION_FORMAT!r})")
+        band = payload.get("quant_band", {})
+        mine = self.quant_band()
+        if {k: band.get(k) for k in self._QUANT_KNOBS} != mine:
+            raise ValueError(
+                f"{path}: calibration band {band} does not match this "
+                f"engine's {mine}; scales are band-specific: re-calibrate "
+                "or construct the engine with matching quant_opts")
+        try:
+            self.set_calibration(payload.get("scales", {}))
+        except ValueError as exc:
+            raise ValueError(f"{path}: {exc}") from None
+
+    @contextlib.contextmanager
+    def _calibrating(self):
+        """Record scales during the block: a running max over the stored
+        ones (none when uncalibrated); they are kept only if the block
+        ends without an error."""
+        scales = self._act_scales
+        before = scales.values
+        scales.values, scales.calibrating = dict(before or {}), True
+        try:
+            yield
+        except BaseException:
+            scales.values = before
+            raise
+        finally:
+            scales.calibrating = False
+        self._warn_zero_scales(scales.values)
+
     def generate_batch(self, batch: GraphBatch, noise=None,
-                       seed: int = 0) -> dict:
+                       seed: int = 0, _calibrate: bool = False) -> dict:
         """Run the generator on an encoded batch.
 
         Args:
@@ -143,7 +304,10 @@ class InferenceEngine:
         def dev(a, dtype):
             return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
 
-        with torch.inference_mode(), full_fp32():
+        calibrating = self._quantized and (_calibrate or not self.calibrated)
+        with torch.inference_mode(), full_fp32(), (
+                self._calibrating() if calibrating
+                else contextlib.nullcontext()):
             imgs, boxes, masks, rel_scores = self.model(
                 dev(batch.objs, torch.long), dev(batch.triples, torch.long),
                 dev(batch.obj_mask, torch.float32),
@@ -152,7 +316,7 @@ class InferenceEngine:
                 "rel_scores": rel_scores}
 
     def generate(self, scene_graphs, noise=None, seed: int = 0,
-                 deprocess: bool = True):
+                 deprocess: bool = True, _calibrate: bool = False):
         """Scene graph dict(s) -> (images, outputs).
 
         The batch is padded to a power-of-two bucket and the padded rows
@@ -169,7 +333,8 @@ class InferenceEngine:
         n_pad = max(1, 1 << (n_real - 1).bit_length()) if n_real else 1
         if n_pad > n_real:
             batch = batch.pad_rows(n_pad)
-        out = self.generate_batch(batch, noise=noise, seed=seed)
+        out = self.generate_batch(batch, noise=noise, seed=seed,
+                                  _calibrate=_calibrate)
         out = {k: (None if v is None else v[:n_real]) for k, v in out.items()}
         imgs = out["imgs"].float().permute(0, 2, 3, 1).cpu().numpy()
         if deprocess:

@@ -54,7 +54,10 @@ class Sg2ImGenerator(nn.Module):
     ``crn_mode`` ('legacy' or 'split') are the serving options of the JAX
     package; in bf16 only the CRN chain runs in bf16, while box geometry,
     the layout compose and the GCN / head Linear layers stay float32.
-    ``crn_quant`` (the JAX package's int8 tier) is not ported and raises."""
+    ``crn_quant='int8'`` is the turbo tier (see ``nn/crn.py``), with its
+    band ``crn_quant_min_res`` / ``crn_quant_max_res`` and
+    ``crn_quant_head``; its activation scales are
+    ``refinement_net.act_scales``, outside the state dict."""
 
     def __init__(self, vocab, image_size=(64, 64), embedding_dim: int = 64,
                  gconv_dim: int = 128, gconv_hidden_dim: int = 512,
@@ -64,12 +67,10 @@ class Sg2ImGenerator(nn.Module):
                  activation: str = "leakyrelu-0.2", mask_size=None,
                  mlp_normalization: str = "none", layout_noise_dim: int = 0,
                  compute_dtype=None, crn_mode: str = "legacy",
-                 crn_quant=None):
+                 crn_quant=None, crn_quant_head: bool = True,
+                 crn_quant_min_res: int = 32,
+                 crn_quant_max_res: int = 1 << 30):
         super().__init__()
-        if crn_quant is not None:
-            raise NotImplementedError(
-                f"crn_quant={crn_quant!r}: the int8 CRN tier is not ported "
-                "(ROADMAP Queue 1 item 11)")
         if compute_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be None, float32 or "
                              f"bfloat16, got {compute_dtype}")
@@ -107,7 +108,8 @@ class Sg2ImGenerator(nn.Module):
         self.refinement_net = RefinementNetwork(
             (gconv_dim + layout_noise_dim,) + tuple(refinement_dims),
             normalization=normalization, activation=activation,
-            conv0_mode=crn_mode)
+            conv0_mode=crn_mode, quant=crn_quant, quant_head=crn_quant_head,
+            quant_min_res=crn_quant_min_res, quant_max_res=crn_quant_max_res)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded initialisation with upstream's distributions."""

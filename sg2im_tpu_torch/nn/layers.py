@@ -114,8 +114,18 @@ class MLP(nn.Sequential):
 
 
 def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """Nearest-neighbour upsample of NCHW by an integer factor."""
-    return F.interpolate(x, scale_factor=factor, mode="nearest")
+    """Nearest-neighbour upsample of NCHW by an integer factor.
+
+    Integer tensors (the int8 turbo tier) go by index expansion, which
+    ``F.interpolate`` does not implement for them; the result is
+    channels_last, as the int8 conv kernel reads it."""
+    if x.is_floating_point():
+        return F.interpolate(x, scale_factor=factor, mode="nearest")
+    N, C, H, W = x.shape
+    nhwc = x.permute(0, 2, 3, 1)[:, :, None, :, None, :]
+    up = nhwc.expand(N, H, factor, W, factor, C).reshape(
+        N, H * factor, W * factor, C)
+    return up.permute(0, 3, 1, 2)
 
 
 def avg_pool_2d(x: torch.Tensor, factor: int) -> torch.Tensor:

@@ -1,12 +1,12 @@
-"""Build and load the port's CUDA kernels: nvcc into a shared library with a
+"""Build and load the port's CUDA kernels: nvcc into shared libraries with a
 plain C interface, loaded with ctypes.
 
-The library is built at first use from the sources under
-``sg2im_tpu_torch/csrc`` into ``build/sg2im_tpu_torch/`` at the root of the
-checkout, under a name keyed by a hash of the sources and flags, so a
-changed source is rebuilt and an unchanged one is reused.  There is no
-fallback: if ``nvcc`` is missing or the build fails, :func:`load_library`
-raises and says why.
+Each source under ``sg2im_tpu_torch/csrc`` becomes its own library, built at
+first use into ``build/sg2im_tpu_torch/`` at the root of the checkout under
+a name keyed by a hash of the source and flags, so a changed source is
+rebuilt and an unchanged one is reused.  The sources build in parallel, one
+nvcc process each.  There is no fallback: if ``nvcc`` is missing or a build
+fails, :func:`load_library` raises and says why.
 """
 
 from __future__ import annotations
@@ -19,10 +19,10 @@ import shutil
 import subprocess
 import tempfile
 import time
+import types
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("layout_compose.cu",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sg2im_tpu_torch"
 # No --use_fast_math: the tent weights' non-finite test is part of the
 # layout contract and fast math may fold it away.
@@ -34,12 +34,18 @@ NVCC_FLAGS = (
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-# name -> argtypes of each C entry point (all return cudaError_t as int).
-ENTRY_POINTS = {
-    "sg2im_layout_compose_boxes":
-        [_PTR, _PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR],
-    "sg2im_layout_compose_weights":
-        [_PTR, _PTR, _PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR],
+# source -> {C entry point: argtypes} (every entry returns cudaError_t as int).
+SOURCES = {
+    "layout_compose.cu": {
+        "sg2im_layout_compose_boxes":
+            [_PTR, _PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR],
+        "sg2im_layout_compose_weights":
+            [_PTR, _PTR, _PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR],
+    },
+    "conv3x3.cu": {
+        "sg2im_conv3x3_bf16": [_PTR] * 5 + [_INT] * 7 + [_PTR],
+        "sg2im_conv3x3_s8": [_PTR] * 4 + [_INT] * 5 + [_PTR],
+    },
 }
 
 
@@ -58,50 +64,64 @@ def find_nvcc() -> str:
         "built, and CUDA tensors have no other path")
 
 
-def library_path() -> Path:
+def library_path(source: str) -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    h.update(source.encode())
+    h.update((CSRC / source).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libsg2im_kernels-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile the kernels unless the keyed library exists.
+def build() -> dict[str, tuple[Path, float, str]]:
+    """Compile every source whose keyed library does not exist yet, all
+    nvcc processes started together.
 
-    Returns (library path, build seconds (0.0 when reused), compiler log).
+    Returns {source: (library path, build seconds (0.0 when reused),
+    compiler log)}.
     """
-    out = library_path()
-    if out.is_file():
-        return out, 0.0, ""
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build under a temporary name and rename: concurrent processes never
-    # load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
-    out.with_suffix(".log").write_text(log)
-    return out, seconds, log
+    done, running = {}, {}
+    for source in SOURCES:
+        out = library_path(source)
+        if out.is_file():
+            done[source] = (out, 0.0, "")
+            continue
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # Build under a temporary name and rename: concurrent processes
+        # never load a half-written library.
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[source] = (proc, cmd, tmp, out, time.perf_counter())
+    failed = []
+    for source, (proc, cmd, tmp, out, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed (exit {proc.returncode}): "
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, out)
+        out.with_suffix(".log").write_text(log)
+        done[source] = (out, seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare the C entry points."""
-    path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in ENTRY_POINTS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def load_library() -> types.SimpleNamespace:
+    """Build if needed, load every library, and declare the C entry points;
+    returns them as attributes of one namespace."""
+    entries = {}
+    for source, (path, _, _) in build().items():
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SOURCES[source].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            entries[name] = fn
+    return types.SimpleNamespace(**entries)

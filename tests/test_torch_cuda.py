@@ -1,4 +1,5 @@
-"""The Hopper layout-compose kernel against its plain version, on the card.
+"""The Hopper kernels (layout compose, 3x3 conv) against their plain
+versions, on the card.
 
 These tests need a CUDA card and nvcc; they carry the ``cuda`` marker and
 skip elsewhere.  On the card, where JAX (which tests/conftest.py imports)
@@ -6,7 +7,8 @@ need not be installed:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-The comparisons are those of ``chip_smoke.py`` phase 3 (bar: 1e-5 abs).
+The comparisons are those of ``chip_smoke.py`` phases 3 and 4 (layout
+compose: 1e-5 abs; conv: s8 within 1 ulp, bf16 within 1e-4 of max |out|).
 """
 
 import pytest
@@ -14,6 +16,9 @@ import torch
 
 import chip_smoke
 from sg2im_tpu_torch.inference import full_fp32
+from sg2im_tpu_torch.nn import crn as tcrn
+from sg2im_tpu_torch.nn.layers import upsample_nearest
+from sg2im_tpu_torch.ops import conv_kernel as ck
 from sg2im_tpu_torch.ops import layout as tlayout
 from sg2im_tpu_torch.ops import layout_kernel as lk
 
@@ -64,3 +69,38 @@ def test_wrappers_reject_what_the_kernel_does_not_take(card):
         lk.layout_compose(boxes, big, vecs, 16, 16)
     with pytest.raises(TypeError, match="out_dtype"):
         lk.layout_compose(boxes, masks, vecs, 16, 16, out_dtype=torch.half)
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.CONV_CASES))
+def test_conv_entries_match_plain_versions(card, name):
+    N, H, W, Cin, Co = chip_smoke.CONV_CASES[name]
+    before = (ck.conv3x3.launches, ck.conv3x3_int8.launches)
+    chip_smoke.check_conv_case(torch, name, N, H, W, Cin, Co)
+    assert (ck.conv3x3.launches, ck.conv3x3_int8.launches) == \
+        (before[0] + 3, before[1] + 1)
+
+
+def test_int8_upsample_feeds_the_kernel(card):
+    t = chip_smoke.conv_inputs(torch, 2, 9, 11, 40, 24, seed=5)
+    up = upsample_nearest(t["x8"], 2)
+    assert up.is_contiguous(memory_format=torch.channels_last)
+    s = torch.tensor(0.01, device=card)
+    w = torch.randn(24, 40, 3, 3, device=card)
+    got = tcrn._conv_int8(up, w, s)
+    kq, sw = tcrn._quant_weight_int8(w)
+    want = ck.conv3x3_int8_ref(up, kq, s * sw)
+    assert torch.equal(got, want)
+
+
+def test_conv_wrappers_reject_what_the_kernel_does_not_take(card):
+    t = chip_smoke.conv_inputs(torch, 1, 8, 8, 16, 8, seed=6)
+    with pytest.raises(ValueError, match="channels_last"):
+        ck.conv3x3_int8(t["x8"].contiguous(), t["w8"], t["dq"])
+    with pytest.raises(TypeError, match="int8"):
+        ck.conv3x3_int8(t["xb"], t["w8"], t["dq"])
+    with pytest.raises(ValueError, match="dq must be"):
+        ck.conv3x3_int8(t["x8"], t["w8"], t["dq"].double())
+    with pytest.raises(TypeError, match="bfloat16"):
+        ck.conv3x3(t["xb"].float(), t["wb"])
+    with pytest.raises(ValueError, match="different devices"):
+        ck.conv3x3(t["xb"], t["wb"].cpu())

@@ -153,7 +153,7 @@ def test_seeded_init_is_reproducible():
 
 @pytest.mark.parametrize("option", [{"crn_mode": "packed"},
                                     {"crn_mode": "split_noise"},
-                                    {"crn_quant": "int8"}])
+                                    {"crn_mode": "phase"}])
 def test_unported_options_name_the_roadmap(option):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         Sg2ImGenerator(VOCAB, **dict(SMALL, **option))
