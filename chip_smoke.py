@@ -8,8 +8,8 @@ with a non-zero exit code:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, the TF32 flags;
-2. build: nvcc builds csrc/layout_compose.cu and csrc/conv3x3.cu for
-   sm_90a, one process each, started together;
+2. build: nvcc builds csrc/layout_compose.cu, csrc/conv3x3.cu and
+   csrc/relayout.cu for sm_90a, one process each, started together;
 3. kernels: both entries of the layout-compose kernel against their plain
    PyTorch version on the card (flagship shapes, a ragged case, degenerate
    boxes with empty object slots), then their time beside the plain
@@ -18,19 +18,25 @@ with a non-zero exit code:
    int8) against their plain versions on the turbo path's shapes, the
    CRN shapes of the TPU prototype and a ragged case, then their time at
    batch 128 beside the plain versions and beside cuDNN's bf16 conv;
-5. the learned checkpoint artifacts/trained_coco64.pt through the
+5. relayout: both entries of the space-to-depth / depth-to-space kernel
+   bit-equal to their plain versions at the packed CRN's batch-128 shapes
+   and on ragged and unaligned cases, then their time beside the plain
+   version's and beside a copy_ of the same bytes;
+6. the learned checkpoint artifacts/trained_coco64.pt through the
    run_model CLI on the card, in float32 and on the int8 turbo tier with a
    calibration file made on the card, each held against the CPU engine by
    u8 PSNR;
-6. vg128 serving: the flagship generator (random weights from a seed)
+7. vg128 serving: the flagship generator (random weights from a seed)
    answers generate requests of 1, 3 and 8 graphs in float32, bf16 /
-   'split' and the turbo tier, agrees with the CPU engines on a small
-   input, and its batch-128 forward is timed in each mode.
+   'split', the turbo tier, bf16 / 'packed', 'phase' and 'split_noise'
+   and float32 / 'packed', agrees with the CPU engines on a small input,
+   and its batch-128 forward is timed in each mode.
 
-Each path (the turbo CLI, the vg128 requests, the turbo requests) runs
-with the kernels' launch counts set to 0 just before it and read just
-after.  The line before the last is a JSON summary of every ported kernel
-with its launches on those paths; the last line is
+Each path (the turbo CLI, the vg128 requests of f32 and bf16/split, the
+turbo requests, the requests of each further CRN mode) runs with the
+kernels' launch counts set to 0 just before it and read just after.
+The line before the last is a JSON summary of every ported kernel with
+its launches on those paths; the last line is
 {"ok": true, "device": {...}}.  It needs no network and no JAX.
 """
 
@@ -48,6 +54,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "sg2im_tpu_torch/csrc/layout_compose.cu"
 CONV_SOURCE = "sg2im_tpu_torch/csrc/conv3x3.cu"
+RELAYOUT_SOURCE = "sg2im_tpu_torch/csrc/relayout.cu"
 KERNEL_BAR = 1e-5  # max abs error vs the plain version (tests/test_pallas.py)
 PSNR_BAR = 40.0    # u8 dB, the fidelity gate of the JAX package
 
@@ -385,15 +392,126 @@ def phase_conv(torch, card):
     return errs, times
 
 
+# name: (entry, NCHW input shape, dtype name, element offset of the data
+# pointer).  The packed vg128 path at batch 128 (the three layout levels
+# packed, the two stage boundaries and the head unpacked), then ragged
+# runs (2C elements not a multiple of 16 bytes) and inputs off alignment,
+# so that every copy unit (16, 8, 4, 2 and 1 bytes) runs.
+RELAYOUT_PATH = {
+    "s2d level s3 N128 C160 32x32 bf16": ("s2d", (128, 160, 32, 32),
+                                          "bfloat16", 0),
+    "s2d level s4 N128 C160 64x64 bf16": ("s2d", (128, 160, 64, 64),
+                                          "bfloat16", 0),
+    "s2d level s5 N128 C160 128x128 bf16": ("s2d", (128, 160, 128, 128),
+                                            "bfloat16", 0),
+    "d2s s3 out N128 C1024 16x16 bf16": ("d2s", (128, 1024, 16, 16),
+                                         "bfloat16", 0),
+    "d2s s4 out N128 C512 32x32 bf16": ("d2s", (128, 512, 32, 32),
+                                        "bfloat16", 0),
+    "d2s head N128 C12 64x64 f32": ("d2s", (128, 12, 64, 64), "float32", 0),
+}
+RELAYOUT_RAGGED = {
+    "s2d ragged N3 C5 6x10 f32": ("s2d", (3, 5, 6, 10), "float32", 0),
+    "s2d ragged N2 C3 14x6 bf16": ("s2d", (2, 3, 14, 6), "bfloat16", 0),
+    "d2s ragged N2 C12 3x5 bf16": ("d2s", (2, 12, 3, 5), "bfloat16", 0),
+    "d2s ragged N3 C28 5x2 int8": ("d2s", (3, 28, 5, 2), "int8", 0),
+    "s2d unaligned N2 C16 8x8 bf16": ("s2d", (2, 16, 8, 8), "bfloat16", 1),
+    "d2s unaligned N2 C64 4x4 f32": ("d2s", (2, 64, 4, 4), "float32", 1),
+    "s2d unaligned N2 C5 6x4 int8": ("s2d", (2, 5, 6, 4), "int8", 1),
+}
+
+
+def relayout_input(torch, shape, dtype, offset=0, seed=0):
+    """A channels_last NCHW tensor of ``shape`` on the card whose data
+    starts ``offset`` elements into its buffer."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    N, C, H, W = shape
+    n = N * C * H * W
+    if dtype == "int8":
+        flat = torch.randint(-128, 128, (n + offset,), generator=gen,
+                             device="cuda", dtype=torch.int8)
+    else:
+        flat = torch.randn((n + offset,), generator=gen, device="cuda").to(
+            getattr(torch, dtype))
+    return flat[offset:].view(N, H, W, C).permute(0, 3, 1, 2)
+
+
+def relayout_entry(entry):
+    """(wrapper, plain version) of K3's 's2d' or 'd2s' entry."""
+    from sg2im_tpu_torch.ops import relayout as rl
+
+    if entry == "s2d":
+        return rl.space_to_depth, rl.space_to_depth_ref
+    return rl.depth_to_space, rl.depth_to_space_ref
+
+
+def check_relayout_case(torch, name, entry, shape, dtype, offset, seed=0):
+    """One kernel entry against its plain version: bit-equal, and the
+    output channels_last.  Returns the max abs error (0.0)."""
+    x = relayout_input(torch, shape, dtype, offset, seed)
+    kernel, plain = relayout_entry(entry)
+    got, want = kernel(x), plain(x)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != x.dtype:
+        fail(f"relayout {name}: got {tuple(got.shape)} {got.dtype}, want "
+             f"{tuple(want.shape)} {x.dtype}")
+    if not got.is_contiguous(memory_format=torch.channels_last):
+        fail(f"relayout {name}: output is not channels_last")
+    if not torch.equal(got, want):
+        fail(f"relayout {name}: {entry} entry differs from the plain version")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def phase_relayout(torch, card):
+    """K3's entries against their plain versions on every case, then their
+    time at the path's batch-128 shapes beside the plain version and a
+    copy_ of the same bytes."""
+    errs = {"s2d": 0.0, "d2s": 0.0}
+    times = {f"{e}{k}": 0.0 for e in ("s2d", "d2s")
+             for k in ("", "_plain", "_copy")}
+    with torch.inference_mode():
+        cases = {**RELAYOUT_PATH, **RELAYOUT_RAGGED}
+        for i, (name, case) in enumerate(cases.items()):
+            errs[case[0]] = max(errs[case[0]],
+                                check_relayout_case(torch, name, *case,
+                                                    seed=i))
+        print(f"[relayout] {len(cases)} cases bit-equal to the plain "
+              f"versions: max_abs_err s2d {errs['s2d']} d2s {errs['d2s']}")
+        for name, (entry, shape, dtype, _) in RELAYOUT_PATH.items():
+            x = relayout_input(torch, shape, dtype, seed=3)
+            fn, plain = relayout_entry(entry)
+            dst = torch.empty_like(x)
+            ms = {"": _time_ms(torch, lambda: fn(x)),
+                  "_plain": _time_ms(torch, lambda: plain(x)),
+                  "_copy": _time_ms(torch, lambda: dst.copy_(x))}
+            for k, v in ms.items():
+                times[entry + k] += v
+            gb = 2 * x.numel() * x.element_size() / 1e9  # read + write
+            print(f"[relayout] b128 {name} (ms): kernel {ms['']:.4f} "
+                  f"({gb / ms[''] * 1e3:.0f} GB/s) vs plain "
+                  f"{ms['_plain']:.4f} ({gb / ms['_plain'] * 1e3:.0f} GB/s) "
+                  f"vs copy_ {ms['_copy']:.4f} "
+                  f"({gb / ms['_copy'] * 1e3:.0f} GB/s); on {card}")
+            del x, dst
+    for entry in ("s2d", "d2s"):
+        print(f"[relayout] b128 sum of the three {entry} shapes (ms): kernel "
+              f"{times[entry]:.4f} vs plain {times[entry + '_plain']:.4f} vs "
+              f"copy_ {times[entry + '_copy']:.4f}")
+    return errs, times
+
+
 def kernel_wrappers():
     """{kernels-line name: wrapper}; each wrapper counts its launches."""
     from sg2im_tpu_torch.ops import conv_kernel as ck
     from sg2im_tpu_torch.ops import layout_kernel as lk
+    from sg2im_tpu_torch.ops import relayout as rl
 
     return {"layout_compose_boxes": lk.layout_compose,
             "layout_compose_weights": lk.layout_compose_weights,
             "conv3x3_bf16": ck.conv3x3,
-            "conv3x3_s8": ck.conv3x3_int8}
+            "conv3x3_s8": ck.conv3x3_int8,
+            "relayout_s2d": rl.space_to_depth,
+            "relayout_d2s": rl.depth_to_space}
 
 
 def reset_launches():
@@ -527,6 +645,20 @@ def phase_vg128(torch, card, launches):
         "bf16/split": InferenceEngine(vocab, kwargs, state, device="cuda",
                                       **bf16),
     }
+    # The further CRN modes: {name: (engine options, kernels its requests
+    # must launch)}.  'packed' packs the 32x32, 64x64 and 128x128 stages
+    # and the head.
+    more_modes = {
+        "bf16/packed": (dict(compute_dtype=torch.bfloat16,
+                             crn_mode="packed"),
+                        ("relayout_s2d", "relayout_d2s")),
+        "bf16/phase": (dict(compute_dtype=torch.bfloat16, crn_mode="phase"),
+                       ("relayout_d2s",)),
+        "bf16/split_noise": (dict(compute_dtype=torch.bfloat16,
+                                  crn_mode="split_noise"), ()),
+        "f32/packed": (dict(crn_mode="packed"),
+                       ("relayout_s2d", "relayout_d2s")),
+    }
     rng = np.random.RandomState(0)
 
     def serve(mode, engine):
@@ -550,6 +682,20 @@ def phase_vg128(torch, card, launches):
           f"bf16/split: outputs finite; kernel launches {path}")
     if path["layout_compose_boxes"] == 0:
         fail("the serving path never launched the layout-compose kernel")
+
+    # The further CRN modes, each its own path.
+    for mode, (opts, needs) in more_modes.items():
+        engine = InferenceEngine(vocab, kwargs, state, device="cuda", **opts)
+        reset_launches()
+        serve(mode, engine)
+        path = read_launches()
+        add_launches(launches, path)
+        print(f"[vg128] {mode}: requests of 1, 3, 8 graphs finite; kernel "
+              f"launches {path}")
+        for name in ("layout_compose_boxes",) + needs:
+            if path[name] == 0:
+                fail(f"the {mode} path never launched {name}")
+        engines[mode] = engine
 
     # The turbo path: calibrate, then requests, counting kernel launches.
     turbo = InferenceEngine(vocab, kwargs, state, device="cuda",
@@ -609,6 +755,7 @@ def phase_vg128(torch, card, launches):
             engine.model(*args, noise)  # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
             windows = []
             for _ in range(5):
                 t0 = time.perf_counter()
@@ -619,11 +766,14 @@ def phase_vg128(torch, card, launches):
             if not torch.isfinite(imgs).all():
                 fail(f"{mode}: non-finite b128 images")
         ms = float(np.median(windows)) * 1e3
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        peak = torch.cuda.max_memory_allocated()
         print(f"[vg128] b128 forward {mode}: {128 / ms * 1e3:.1f} img/s, "
               f"{ms:.2f} ms (median of 5 windows of 3, runs "
               f"{[round(w * 1e3, 2) for w in windows]}), peak "
-              f"{peak:.2f} GiB allocated, on {card}")
+              f"{peak / 2 ** 30:.2f} GiB allocated ("
+              f"{(peak - resident) / 2 ** 30:.2f} GiB above the "
+              f"{resident / 2 ** 30:.2f} GiB resident: every engine's "
+              f"weights and the inputs), on {card}")
 
 
 def main() -> int:
@@ -637,11 +787,13 @@ def main() -> int:
     phase_build()
     errs, times = phase_kernels(torch)
     conv_errs, conv_times = phase_conv(torch, card)
+    rl_errs, rl_times = phase_relayout(torch, card)
     launches = {}
     phase_checkpoint(torch, launches)
     phase_vg128(torch, card, launches)
     layout_src = "sg2im_tpu/ops/pallas/layout_kernel.py"
     conv_replaces = "scripts/proto_pallas_conv.py:122"
+    relayout_src = "sg2im_tpu/ops/pallas/relayout_kernel.py"
     rows = [
         ("layout_compose_boxes", KERNEL_SOURCE, f"{layout_src}:241",
          errs["boxes"], times["boxes"], times["boxes_plain"]),
@@ -651,6 +803,10 @@ def main() -> int:
          conv_times["bf16"], conv_times["bf16_plain"]),
         ("conv3x3_s8", CONV_SOURCE, conv_replaces, conv_errs["s8"],
          conv_times["s8"], conv_times["s8_plain"]),
+        ("relayout_s2d", RELAYOUT_SOURCE, f"{relayout_src}:77",
+         rl_errs["s2d"], rl_times["s2d"], rl_times["s2d_plain"]),
+        ("relayout_d2s", RELAYOUT_SOURCE, f"{relayout_src}:91",
+         rl_errs["d2s"], rl_times["d2s"], rl_times["d2s_plain"]),
     ]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

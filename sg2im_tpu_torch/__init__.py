@@ -5,9 +5,11 @@ Generation from Scene Graphs", CVPR 2018), beside the JAX package
 ``sg2im_tpu``, which stays the reference it is tested against.  Plain
 tensor code is PyTorch; the kernels the JAX package wrote in Pallas for the
 TPU are CUDA kernels written for sm_90a, built with nvcc at first use: the
-layout compose (``csrc/layout_compose.cu``) and the 3x3 conv
+layout compose (``csrc/layout_compose.cu``), the 3x3 conv
 (``csrc/conv3x3.cu``), whose int8 entry carries the int8 turbo serving
-tier.  The package imports neither JAX nor the JAX package.
+tier, and the space-to-depth / depth-to-space relayout of the CRN's
+'packed' and 'phase' modes (``csrc/relayout.cu``).  The package imports
+neither JAX nor the JAX package.
 """
 
 __version__ = "0.1.0"

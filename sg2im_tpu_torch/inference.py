@@ -86,7 +86,9 @@ class InferenceEngine:
           device: where the generator runs ('cuda', 'cuda:1', 'cpu', ...).
           pad_align: object and triple slots are padded to a multiple.
           compute_dtype: None (float32) or torch.bfloat16 (bf16 CRN).
-          crn_mode: None ('legacy') or 'split'.
+          crn_mode: None ('legacy'), 'split', 'split_noise', 'phase' or
+            'packed' (see ``Sg2ImGenerator``); the int8 tier takes
+            'legacy', 'split' and 'split_noise'.
           quantize: None or 'int8' (the turbo tier).
           quant_opts: the tier's band, merged key by key into the default
             {'max_res': 64}: 'head' (bool), 'min_res', 'max_res' (layout

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sg2im_tpu_torch.nn.crn import RefinementNetwork
+from sg2im_tpu_torch.nn.crn import CONV0_MODES, RefinementNetwork
 from sg2im_tpu_torch.nn.graph import (
     GraphTripleConv,
     GraphTripleConvNet,
@@ -27,6 +27,8 @@ from sg2im_tpu_torch.nn.graph import (
 )
 from sg2im_tpu_torch.nn.layers import MLP, BatchNorm, init_weights
 from sg2im_tpu_torch.ops.layout import boxes_to_layout, masks_to_layout
+
+CRN_MODES = CONV0_MODES + ("split_noise",)
 
 
 class MaskNet(nn.Sequential):
@@ -51,9 +53,12 @@ class MaskNet(nn.Sequential):
 class Sg2ImGenerator(nn.Module):
     """Generator (upstream ``Sg2ImModel``); constructor arguments mirror
     upstream's.  ``compute_dtype`` (None or torch.bfloat16) and
-    ``crn_mode`` ('legacy' or 'split') are the serving options of the JAX
-    package; in bf16 only the CRN chain runs in bf16, while box geometry,
-    the layout compose and the GCN / head Linear layers stay float32.
+    ``crn_mode`` are the serving options of the JAX package; in bf16 only
+    the CRN chain runs in bf16, while box geometry, the layout compose and
+    the GCN / head Linear layers stay float32.  ``crn_mode`` is one of
+    ``CRN_MODES``: the CRN's conv0 modes (see ``nn/crn.py``) and
+    'split_noise', which is 'split' with the layout noise handed to the
+    CRN apart from the layout.
     ``crn_quant='int8'`` is the turbo tier (see ``nn/crn.py``), with its
     band ``crn_quant_min_res`` / ``crn_quant_max_res`` and
     ``crn_quant_head``; its activation scales are
@@ -105,10 +110,15 @@ class Sg2ImGenerator(nn.Module):
         self.rel_aux_net = MLP(
             (2 * embedding_dim + 8, gconv_hidden_dim, num_preds),
             batch_norm=mlp_normalization)
+        if crn_mode not in CRN_MODES:
+            raise ValueError(f"unknown crn_mode {crn_mode!r}; one of "
+                             f"{CRN_MODES}")
+        self.crn_mode = crn_mode
         self.refinement_net = RefinementNetwork(
             (gconv_dim + layout_noise_dim,) + tuple(refinement_dims),
             normalization=normalization, activation=activation,
-            conv0_mode=crn_mode, quant=crn_quant, quant_head=crn_quant_head,
+            conv0_mode="split" if crn_mode == "split_noise" else crn_mode,
+            quant=crn_quant, quant_head=crn_quant_head,
             quant_min_res=crn_quant_min_res, quant_max_res=crn_quant_max_res)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -170,10 +180,16 @@ class Sg2ImGenerator(nn.Module):
                                      obj_mask, H, W, out_dtype=dtype)
         # NHWC storage viewed as NCHW: a channels_last tensor, no copy.
         layout = layout.permute(0, 3, 1, 2)
+        noise = None
         if self.layout_noise_dim > 0:
             if layout_noise is None:
                 raise ValueError("layout_noise (N, layout_noise_dim, H, W) is "
                                  "required when layout_noise_dim > 0")
-            layout = torch.cat([layout, layout_noise.to(dtype)], dim=1)
-        imgs = self.refinement_net(layout, self.compute_dtype)
+            if self.crn_mode == "split_noise":
+                # The noise rides its own pyramid and conv0 kernel slice:
+                # the full-resolution concat is never stored.
+                noise = layout_noise.to(dtype)
+            else:
+                layout = torch.cat([layout, layout_noise.to(dtype)], dim=1)
+        imgs = self.refinement_net(layout, self.compute_dtype, noise=noise)
         return imgs, boxes_pred, masks_pred, rel_scores

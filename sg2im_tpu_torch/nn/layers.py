@@ -74,14 +74,20 @@ class BatchNorm(nn.Module):
         state_dict.pop(prefix + "num_batches_tracked", None)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
-    def forward(self, x):
+    def forward(self, x, phases: int = 1):
+        """``phases`` > 1: x is packed (N, phases * C, R, Rw), channel
+        p * C + c being phase p of channel c, and every phase of channel c
+        takes channel c's statistics and affine parameters."""
         if self.training:
             raise NotImplementedError(
                 "train-mode BatchNorm comes with the training port (ROADMAP "
                 "Queue 1); call .eval() for inference")
         if x.ndim == 4:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+            stats = (self.running_mean, self.running_var, self.weight,
+                     self.bias)
+            if phases > 1:
+                stats = tuple(t.repeat(phases) for t in stats)
+            return F.batch_norm(x, *stats, False, 0.0, self.eps)
         shape = x.shape
         y = F.batch_norm(x.reshape(-1, shape[-1]), self.running_mean,
                          self.running_var, self.weight, self.bias, False,

@@ -46,6 +46,10 @@ SOURCES = {
         "sg2im_conv3x3_bf16": [_PTR] * 5 + [_INT] * 7 + [_PTR],
         "sg2im_conv3x3_s8": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     },
+    "relayout.cu": {
+        "sg2im_space_to_depth": [_PTR] * 2 + [_INT] * 5 + [_PTR],
+        "sg2im_depth_to_space": [_PTR] * 2 + [_INT] * 5 + [_PTR],
+    },
 }
 
 

@@ -1,5 +1,5 @@
-"""The Hopper kernels (layout compose, 3x3 conv) against their plain
-versions, on the card.
+"""The Hopper kernels (layout compose, 3x3 conv, relayout) against their
+plain versions, on the card.
 
 These tests need a CUDA card and nvcc; they carry the ``cuda`` marker and
 skip elsewhere.  On the card, where JAX (which tests/conftest.py imports)
@@ -7,8 +7,9 @@ need not be installed:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-The comparisons are those of ``chip_smoke.py`` phases 3 and 4 (layout
-compose: 1e-5 abs; conv: s8 within 1 ulp, bf16 within 1e-4 of max |out|).
+The comparisons are those of ``chip_smoke.py`` phases 3 to 5 (layout
+compose: 1e-5 abs; conv: s8 within 1 ulp, bf16 within 1e-4 of max |out|;
+relayout: bit-equal).
 """
 
 import pytest
@@ -21,6 +22,7 @@ from sg2im_tpu_torch.nn.layers import upsample_nearest
 from sg2im_tpu_torch.ops import conv_kernel as ck
 from sg2im_tpu_torch.ops import layout as tlayout
 from sg2im_tpu_torch.ops import layout_kernel as lk
+from sg2im_tpu_torch.ops import relayout as rl
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +106,65 @@ def test_conv_wrappers_reject_what_the_kernel_does_not_take(card):
         ck.conv3x3(t["xb"].float(), t["wb"])
     with pytest.raises(ValueError, match="different devices"):
         ck.conv3x3(t["xb"], t["wb"].cpu())
+
+
+# Both entries in f32 and bf16, ragged runs, an unaligned input, int8.
+RELAYOUT_CASES = {
+    **chip_smoke.RELAYOUT_RAGGED,
+    "s2d N2 C160 16x16 bf16": ("s2d", (2, 160, 16, 16), "bfloat16", 0),
+    "s2d N2 C64 8x12 f32": ("s2d", (2, 64, 8, 12), "float32", 0),
+    "d2s N2 C1024 4x4 bf16": ("d2s", (2, 1024, 4, 4), "bfloat16", 0),
+    "d2s N2 C12 8x8 f32": ("d2s", (2, 12, 8, 8), "float32", 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RELAYOUT_CASES))
+def test_relayout_entries_equal_plain_version(card, name):
+    wrapper = chip_smoke.relayout_entry(RELAYOUT_CASES[name][0])[0]
+    before = wrapper.launches
+    assert chip_smoke.check_relayout_case(torch, name,
+                                          *RELAYOUT_CASES[name]) == 0.0
+    assert wrapper.launches == before + 1
+
+
+def test_relayout_wrappers_reject_what_the_kernel_does_not_take(card):
+    x = torch.randn(2, 8, 4, 6, device=card)  # NCHW-contiguous
+    with pytest.raises(ValueError, match="channels_last"):
+        rl.space_to_depth(x)
+    with pytest.raises(ValueError, match="channels_last"):
+        rl.depth_to_space(x)
+    with torch.inference_mode(False):
+        g = torch.randn(2, 8, 4, 6, device=card, requires_grad=True)
+        with pytest.raises(RuntimeError, match="forward only"):
+            rl.space_to_depth(g.contiguous(memory_format=torch.channels_last))
+
+
+def test_packed_generator_launches_the_relayout_kernel(card):
+    """A packed vg-shaped generator at 64x64 on the card: its 32x32 and
+    64x64 stages and the head run packed, through both K3 entries, and
+    the images agree with the CPU's plain path."""
+    from sg2im_tpu_torch.models import Sg2ImGenerator
+
+    vocab, kwargs = chip_smoke.vg128_config()
+    kwargs = dict(kwargs, image_size=(64, 64),
+                  refinement_dims=(64, 32, 16, 8), crn_mode="packed")
+    model = Sg2ImGenerator(vocab, **kwargs)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.eval()
+    gen = torch.Generator().manual_seed(1)
+    args = (torch.randint(1, 179, (2, 8), generator=gen),
+            torch.randint(0, 8, (2, 12, 3), generator=gen),
+            torch.ones(2, 8), torch.ones(2, 12),
+            torch.randn(2, 32, 64, 64, generator=gen))
+    want = model(*args)[0]
+    gpu = model.to(card, memory_format=torch.channels_last)
+    cuda_args = [a.to(card) for a in args]
+    cuda_args[4] = cuda_args[4].contiguous(memory_format=torch.channels_last)
+    before = (rl.space_to_depth.launches, rl.depth_to_space.launches)
+    got = gpu(*cuda_args)[0]
+    torch.cuda.synchronize()
+    # s2d of the 32x32 and 64x64 levels; d2s at their boundary and after
+    # the head.
+    assert (rl.space_to_depth.launches - before[0],
+            rl.depth_to_space.launches - before[1]) == (2, 2)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

@@ -58,6 +58,23 @@ def test_trained_artifact_zero_noise_matches_jax(port_engine, jax_engine,
                                np.asarray(jout["boxes"]), atol=2e-5)
 
 
+def test_trained_artifact_packed_matches_jax_packed(scene_graphs):
+    """The learned checkpoint with crn_mode='packed' through both engines:
+    its 32x32 and 64x64 stages and the head run in the packed domain."""
+    from sg2im_tpu.inference import InferenceEngine as JaxEngine
+    from sg2im_tpu_torch.inference import InferenceEngine
+
+    port = InferenceEngine.from_torch_checkpoint(CKPT, device="cpu",
+                                                 crn_mode="packed")
+    jax_packed = JaxEngine.from_torch_checkpoint(CKPT, crn_mode="packed")
+    got, out = port.generate(scene_graphs, noise="zeros")
+    want, jout = jax_packed.generate(scene_graphs, noise="zeros")
+    assert got.shape == want.shape == (8, 64, 64, 3)
+    assert psnr_u8(got, want) >= 40.0
+    np.testing.assert_allclose(out["imgs"].permute(0, 2, 3, 1).numpy(),
+                               np.asarray(jout["imgs"]), atol=1e-3)
+
+
 def test_trained_artifact_explicit_noise_matches_jax(port_engine, jax_engine,
                                                      scene_graphs):
     noise = np.random.RandomState(0).randn(5, 64, 64, 32).astype(np.float32)

@@ -85,12 +85,18 @@ def _run_port(model, inputs):
                      torch.from_numpy(noise).permute(0, 3, 1, 2))
 
 
+@pytest.fixture(scope="module")
+def small_variables():
+    return _jax_variables(JaxGenerator(vocab=VOCAB, **SMALL), _inputs())
+
+
 @pytest.fixture(scope="module", params=sorted(VARIANTS))
 def jax_case(request):
     kwargs = dict(SMALL, **VARIANTS[request.param])
     inputs = _inputs()
     gen = JaxGenerator(vocab=VOCAB, **kwargs)
-    variables = _jax_variables(gen, inputs)
+    variables = (request.getfixturevalue("small_variables")
+                 if request.param == "small" else _jax_variables(gen, inputs))
     apply = jax.jit(lambda v, *a: gen.apply(v, *a[:4], layout_noise=a[4]))
     want = apply(variables, *map(jnp.asarray, inputs))
     want = [None if w is None else np.asarray(w) for w in want]
@@ -151,9 +157,67 @@ def test_seeded_init_is_reproducible():
     assert abs(w.std().item() / (2 / w[0].numel()) ** 0.5 - 1) < 0.1
 
 
-@pytest.mark.parametrize("option", [{"crn_mode": "packed"},
-                                    {"crn_mode": "split_noise"},
-                                    {"crn_mode": "phase"}])
-def test_unported_options_name_the_roadmap(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        Sg2ImGenerator(VOCAB, **dict(SMALL, **option))
+# -- the CRN modes beyond legacy / split ---------------------------------------
+
+@pytest.fixture(scope="module", params=["packed", "phase", "split_noise"])
+def mode_case(request, small_variables):
+    """The SMALL generator's JAX float32 output in one crn_mode, and the
+    port's state of the same weights.  At 32x32 the 'packed' default
+    packed_min_res (32) packs the 32x32 stage and the head."""
+    mode = request.param
+    inputs = _inputs()
+    gen = JaxGenerator(vocab=VOCAB, crn_mode=mode, **SMALL)
+    apply = jax.jit(lambda v, *a: gen.apply(v, *a[:4], layout_noise=a[4]))
+    want = [None if w is None else np.asarray(w) for w in
+            apply(small_variables, *map(jnp.asarray, inputs))]
+    return mode, inputs, state_dict_from_jax(small_variables), want
+
+
+def test_generator_mode_f32_matches_jax_in_that_mode(mode_case):
+    mode, inputs, state, want = mode_case
+    model = Sg2ImGenerator(VOCAB, crn_mode=mode, **SMALL)
+    model.load_state_dict(state, strict=True)
+    imgs, boxes, _, _ = _run_port(model.eval(), inputs)
+    np.testing.assert_allclose(boxes.numpy(), want[1], atol=EXACT)
+    np.testing.assert_allclose(imgs.permute(0, 2, 3, 1).numpy(), want[0],
+                               atol=CONV, rtol=CONV)
+
+
+def test_generator_mode_bf16_psnr_vs_jax_f32(mode_case):
+    mode, inputs, state, want = mode_case
+    model = Sg2ImGenerator(VOCAB, compute_dtype=torch.bfloat16,
+                           crn_mode=mode, **SMALL)
+    model.load_state_dict(state, strict=True)
+    imgs = _run_port(model.eval(), inputs)[0]
+    assert imgs.dtype == torch.float32
+    got = imagenet_deprocess_batch(imgs.permute(0, 2, 3, 1).numpy())
+    ref = imagenet_deprocess_batch(want[0])
+    mse = np.mean((got.astype(np.float64) - ref) ** 2)
+    psnr = 10 * np.log10(255.0 ** 2 / mse) if mse else np.inf
+    assert psnr >= 40.0, f"bf16/{mode} u8 PSNR {psnr:.2f} dB"
+
+
+@pytest.mark.parametrize("mode,calls", [("packed", (1, 1)),
+                                        ("phase", (0, 3)),
+                                        ("split_noise", (0, 0))])
+def test_crn_modes_call_the_relayout_wrappers(monkeypatch, mode, calls):
+    """(space_to_depth, depth_to_space) calls of one SMALL forward: packed
+    packs the 32x32 stage's level and unpacks after the head; phase
+    interleaves conv0's feats branch in each of the three stages."""
+    from sg2im_tpu_torch.nn import crn as tcrn
+
+    seen = {"space_to_depth": 0, "depth_to_space": 0}
+    for name in seen:
+        def counted(x, _fn=getattr(tcrn, name), _name=name):
+            seen[_name] += 1
+            return _fn(x)
+        monkeypatch.setattr(tcrn, name, counted)
+    model = Sg2ImGenerator(VOCAB, crn_mode=mode, **SMALL).eval()
+    imgs = _run_port(model, _inputs())[0]
+    assert imgs.shape == (N, 3, 32, 32)
+    assert (seen["space_to_depth"], seen["depth_to_space"]) == calls
+
+
+def test_generator_refuses_unknown_modes():
+    with pytest.raises(ValueError, match="unknown crn_mode"):
+        Sg2ImGenerator(VOCAB, **dict(SMALL, crn_mode="stacked"))

@@ -184,22 +184,200 @@ def crn_case(request):
                                   activation="leakyrelu-0.2")
     variables = perturb_norms(jax.jit(jnet.init)(jax.random.PRNGKey(3),
                                                  jnp.asarray(layout)))
-    want = np.asarray(jax.jit(jnet.apply)(variables, jnp.asarray(layout)))
-    return dims, request.param, layout, variables, want
+    return dims, request.param, layout, variables
 
 
-@pytest.mark.parametrize("mode", ["legacy", "split"])
+NOISE_DIM = 2  # 'split_noise': the layout's last 2 channels come apart
+# conv0_mode of both networks; 'split_noise' is 'split' with the noise
+# apart.  'packed' at packed_min_res 8: the 8x8 and 16x16 stages and the
+# head run packed, the 4x4 stage legacy.
+NET_MODES = {"legacy": {}, "split": {}, "phase": {},
+             "packed": {"packed_min_res": 8}, "split_noise": {}}
+
+
+@pytest.mark.parametrize("mode", sorted(NET_MODES))
 def test_refinement_network_matches_jax(crn_case, mode):
-    dims, norm, layout, variables, want = crn_case
-    net = load(tcrn.RefinementNetwork(dims, normalization=norm,
-                                      activation="leakyrelu-0.2",
-                                      conv0_mode=mode), variables)
+    dims, norm, layout, variables = crn_case
+    conv0_mode = "split" if mode == "split_noise" else mode
+    kw = dict(normalization=norm, activation="leakyrelu-0.2",
+              conv0_mode=conv0_mode, **NET_MODES[mode])
+    jnet = jcrn.RefinementNetwork(dims=dims, **kw)
+    net = load(tcrn.RefinementNetwork(dims, **kw), variables)
+    if mode == "split_noise":
+        parts = (layout[..., :-NOISE_DIM], layout[..., -NOISE_DIM:])
+        want = jax.jit(lambda v, x, n: jnet.apply(v, x, noise=n))(
+            variables, *map(jnp.asarray, parts))
+        with torch.no_grad():
+            got = net(nchw(parts[0]), noise=nchw(parts[1]))
+    else:
+        want = jax.jit(jnet.apply)(variables, jnp.asarray(layout))
+        with torch.no_grad():
+            got = net(nchw(layout))
+    np.testing.assert_allclose(nhwc(got), np.asarray(want), atol=CONV,
+                               rtol=CONV)
+
+
+# -- the packed domain and the phase / noise forms of conv0 -------------------
+
+def _scaled_bar(want):
+    """The JAX suite's bar for exact reformulations (tests/
+    test_model_parity.py): 2e-5 of max(|out|, 1)."""
+    return EXACT * max(float(np.abs(want).max()), 1.0)
+
+
+def _variables(module, *args, seed, **kwargs):
+    """Variables of a JAX module for ``args``, drawn with numpy from a seed
+    (shapes from ``jax.eval_shape``: no initializer is compiled).  Conv
+    kernels are N(0, 2 / fan_in), everything else N(0, 0.1^2); BatchNorm
+    state goes through :func:`perturb_norms`."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args,
+                            **kwargs)
+    rng = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        if path[-1].key == "kernel":
+            std = (2.0 / np.prod(leaf.shape[:-1])) ** 0.5
+        else:
+            std = 0.1
+        return (std * rng.randn(*leaf.shape)).astype(np.float32)
+
+    tree = jax.tree_util.tree_map_with_path(draw, shapes)
+    return perturb_norms(tree, seed)
+
+
+def _load_flat(module, variables, prefix=""):
+    """A single JAX module's variables (no module path) into a port
+    module whose parameters sit under ``prefix``."""
+    state = {prefix + k.lstrip("."): v
+             for k, v in state_dict_from_jax(variables).items()}
+    module.load_state_dict(state, strict=True)
+    return module.eval()
+
+
+PACKED_CONVS = [(4, 3, 5, 7), (2, 16, 8, 3), (3, 2, 1, 4)]  # R, Rw, cin, co
+
+
+@pytest.mark.parametrize("R,Rw,cin,co", PACKED_CONVS)
+def test_packed_conv3x3_matches_jax(R, Rw, cin, co):
+    x = np.random.RandomState(R).randn(2, R, Rw, 4 * cin).astype(np.float32)
+    jm = jcrn.PackedConv3x3(cin, co)
+    variables = _variables(jm, jnp.asarray(x), seed=R)
+    want = np.asarray(jax.jit(jm.apply)(variables, jnp.asarray(x)))
+    conv = _load_flat(tcrn.QuantConv3x3(cin, co), variables)
     with torch.no_grad():
-        got = nhwc(net(nchw(layout)))
-    np.testing.assert_allclose(got, want, atol=CONV, rtol=CONV)
+        got = nhwc(conv.packed(nchw(x)))
+    np.testing.assert_allclose(got, want, atol=_scaled_bar(want), rtol=0)
 
 
-@pytest.mark.parametrize("mode", ["phase", "packed", "split_noise"])
-def test_unported_crn_modes_name_the_roadmap(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcrn.RefinementNetwork((6, 8, 4), conv0_mode=mode)
+@pytest.mark.parametrize("R,Rw,cin,co", PACKED_CONVS)
+def test_packed_upsample_conv_matches_jax(R, Rw, cin, co):
+    rng = np.random.RandomState(R + 10)
+    cl = cin + 2
+    lp = rng.randn(2, R, Rw, 4 * cl).astype(np.float32)
+    feats = rng.randn(2, R, Rw, cin).astype(np.float32)
+    jm = jcrn.PackedUpsampleConv(cl, cin, co)
+    args = (jnp.asarray(lp), jnp.asarray(feats))
+    variables = _variables(jm, *args, seed=R)
+    want = np.asarray(jax.jit(jm.apply)(variables, *args))
+    conv = _load_flat(tcrn.FusedUpsampleConv(cl, cin, co), variables)
+    with torch.no_grad():
+        got = nhwc(conv.packed(nchw(lp), nchw(feats), torch.float32))
+    np.testing.assert_allclose(got, want, atol=_scaled_bar(want), rtol=0)
+
+
+def test_packed_instance_norm_matches_jax():
+    x = (3 * np.random.RandomState(7).randn(2, 5, 3, 4 * 6) + 1).astype(
+        np.float32)
+    want = np.asarray(jcrn.packed_instance_norm(jnp.asarray(x), 6))
+    got = nhwc(tcrn.packed_instance_norm(nchw(x), 6))
+    np.testing.assert_allclose(got, want, atol=_scaled_bar(want), rtol=0)
+
+
+@pytest.mark.parametrize("cin,co", [(6, 3), (5, 4)])
+def test_packed_conv1x1_matches_jax(cin, co):
+    x = np.random.RandomState(cin).randn(2, 3, 5, 4 * cin).astype(np.float32)
+    jm = jcrn.PackedConv1x1(cin, co)
+    variables = _variables(jm, jnp.asarray(x), seed=cin)
+    want = np.asarray(jax.jit(jm.apply)(variables, jnp.asarray(x)))
+    conv = _load_flat(torch.nn.Conv2d(cin, co, 1), variables)
+    with torch.no_grad():
+        got = nhwc(tcrn.packed_conv1x1(conv, nchw(x)))
+    assert got.shape == (2, 6, 10, co)
+    np.testing.assert_allclose(got, want, atol=_scaled_bar(want), rtol=0)
+
+
+@pytest.mark.parametrize("normalization", ["batch", "instance", "none"])
+def test_packed_refinement_module_matches_jax(normalization):
+    """RefinementModule.packed against PackedRefinementModule, BatchNorm
+    statistics away from (0, 1): each channel's statistics serve its four
+    phases."""
+    rng = np.random.RandomState(8)
+    lp = rng.randn(2, 4, 4, 4 * 5).astype(np.float32)
+    feats = rng.randn(2, 4, 4, 3).astype(np.float32)
+    jm = jcrn.PackedRefinementModule(5, 3, 6, normalization=normalization,
+                                     activation="leakyrelu-0.2")
+    args = (jnp.asarray(lp), jnp.asarray(feats))
+    variables = _variables(jm, *args, seed=8)
+    want = np.asarray(jax.jit(jm.apply)(variables, *args))
+    stage = _load_flat(tcrn.RefinementModule(5, 3, 6, normalization,
+                                             "leakyrelu-0.2"),
+                       variables, prefix="net.")
+    with torch.no_grad():
+        got = nhwc(stage.packed(nchw(lp), nchw(feats)))
+    np.testing.assert_allclose(got, want, atol=_scaled_bar(want), rtol=0)
+
+
+CONV0_CASES = [(4, 5, 3, 7), (8, 40, 24, 16), (3, 2, 1, 4)]  # R, cl, cf, co
+
+
+@pytest.mark.parametrize("R,cl,cf,co", CONV0_CASES)
+def test_fused_upsample_conv_phase_matches_jax(R, cl, cf, co):
+    rng = np.random.RandomState(R)
+    layout = rng.randn(2, 2 * R, 2 * R, cl).astype(np.float32)
+    feats = rng.randn(2, R, R, cf).astype(np.float32)
+    jm = jcrn.FusedUpsampleConv(cl, cf, co, mode="phase")
+    args = (jnp.asarray(layout), jnp.asarray(feats))
+    variables = _variables(jm, *args, seed=R)
+    want = np.asarray(jax.jit(jm.apply)(variables, *args))
+    conv = _load_flat(tcrn.FusedUpsampleConv(cl, cf, co, mode="phase"),
+                      variables)
+    with torch.no_grad():
+        got = nhwc(conv(nchw(layout), nchw(feats), torch.float32))
+    np.testing.assert_allclose(got, want, atol=_scaled_bar(want), rtol=0)
+
+
+@pytest.mark.parametrize("R,cl,cf,co", CONV0_CASES)
+def test_fused_upsample_conv_separate_noise_matches_jax(R, cl, cf, co):
+    """Split conv0 with the layout block's trailing noise channels apart,
+    at half and at equal resolution (the first stage's concat)."""
+    rng = np.random.RandomState(R + 20)
+    cn = 2
+    layout = rng.randn(2, 2 * R, 2 * R, cl).astype(np.float32)
+    noise = rng.randn(2, 2 * R, 2 * R, cn).astype(np.float32)
+    jm = jcrn.FusedUpsampleConv(cl + cn, cf, co, mode="split", noise_dim=cn)
+    conv = tcrn.FusedUpsampleConv(cl + cn, cf, co, mode="split")
+    for i, side in enumerate((R, 2 * R)):
+        feats = rng.randn(2, side, side, cf).astype(np.float32)
+        args = tuple(map(jnp.asarray, (layout, feats)))
+        if i == 0:
+            variables = _variables(jm, *args, seed=R,
+                                   noise=jnp.asarray(noise))
+            _load_flat(conv, variables)
+        want = np.asarray(jax.jit(jm.apply)(variables, *args,
+                                   noise=jnp.asarray(noise)))
+        with torch.no_grad():
+            got = nhwc(conv(nchw(layout), nchw(feats), torch.float32,
+                            noise=nchw(noise)))
+        np.testing.assert_allclose(got, want, atol=_scaled_bar(want),
+                                   rtol=0)
+
+
+def test_crn_mode_checks():
+    with pytest.raises(ValueError, match="unknown CRN mode"):
+        tcrn.RefinementNetwork((6, 8, 4), conv0_mode="split_noise")
+    for mode in ("packed", "phase"):
+        with pytest.raises(ValueError, match="int8"):
+            tcrn.RefinementNetwork((6, 8, 4), conv0_mode=mode, quant="int8")
+    net = tcrn.RefinementNetwork((6, 8, 4), conv0_mode="legacy").eval()
+    with pytest.raises(ValueError, match="'split'"):
+        net(torch.zeros(1, 4, 8, 8), noise=torch.zeros(1, 2, 8, 8))

@@ -264,6 +264,17 @@ def test_quant_calibration_lifecycle(state):
         engine(state, **BF16).calibrate(SG)
 
 
+@pytest.mark.parametrize("mode", ["packed", "phase"])
+def test_quant_refuses_packed_and_phase(state, mode):
+    """The JAX package asserts the same (nn/crn.py): int8 quantizes the
+    legacy and split conv0 forms only."""
+    with pytest.raises(ValueError, match="int8"):
+        Sg2ImGenerator(VOCAB, crn_quant="int8", crn_mode=mode,
+                       **MODEL_KWARGS)
+    with pytest.raises(ValueError, match="int8"):
+        engine(state, quantize="int8", crn_mode=mode)
+
+
 def test_quant_zero_scale_warning():
     with pytest.warns(UserWarning, match="ZERO activation scale"):
         InferenceEngine._warn_zero_scales({"a/act_up": 0.0, "a/act_mid": 0.5})
@@ -481,6 +492,18 @@ def test_turbo_images_match_jax_small_model(variables, mode, monkeypatch):
         assert psnr_u8(t_u8, j_u8) >= PSNR_BF16
     np.testing.assert_allclose(t_out["boxes"].numpy(),
                                np.asarray(j_out["boxes"]), atol=2e-5)
+
+
+def test_turbo_split_noise_matches_jax_small_model(variables):
+    """int8 with the noise apart: the JAX engine's scales load into the
+    port's (the same tags), and the images agree at the bf16 bar."""
+    noise = np.random.RandomState(2).randn(2, 64, 64, 6).astype(np.float32)
+    j, t = _turbo_pair(VOCAB, MODEL_KWARGS, variables, "split_noise", SG,
+                       noise)
+    assert t.expected_quant_tags() == jax_tags(j)
+    j_u8, _ = j.generate(SG, noise=noise)
+    t_u8, _ = t.generate(SG, noise=noise)
+    assert psnr_u8(t_u8, j_u8) >= PSNR_BF16
 
 
 @pytest.mark.parametrize("mode", ["legacy", "split"])
