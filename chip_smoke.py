@@ -16,8 +16,11 @@ with a non-zero exit code:
    version's at the flagship batch-128 shape;
 4. conv: both entries of the 3x3 conv kernel (bf16, and the turbo tier's
    int8) against their plain versions on the turbo path's shapes, the
-   CRN shapes of the TPU prototype and a ragged case, then their time at
-   batch 128 beside the plain versions and beside cuDNN's bf16 conv;
+   CRN shapes of the TPU prototype and the edges of the kernel's tile plan
+   and tensor map (ragged and unaligned inputs), then their time at batch
+   128 (the wrapper's call: weight packing and kernel) in turns with
+   cuDNN's bf16 conv, beside the plain versions, the weight packing alone
+   and the bound;
 5. relayout: both entries of the space-to-depth / depth-to-space kernel
    bit-equal to their plain versions at the packed CRN's batch-128 shapes
    and on ragged and unaligned cases, then their time beside the plain
@@ -34,9 +37,14 @@ with a non-zero exit code:
 
 Each path (the turbo CLI, the vg128 requests of f32 and bf16/split, the
 turbo requests, the requests of each further CRN mode) runs with the
-kernels' launch counts set to 0 just before it and read just after.
+kernels' launch counts set to 0 just before it and read just after; the
+conv wrappers' padded input copies, counted the same way, must stay 0 on
+every path and in every timed batch-128 forward.
 The line before the last is a JSON summary of every ported kernel with
-its launches on those paths; the last line is
+its launches on those paths, its time beside its plain version's, its
+bound (the larger of its bytes over the card's memory rate and its
+operations over the peak rate of their type) and one PyTorch call of the
+same function where there is one; the last line is
 {"ok": true, "device": {...}}.  It needs no network and no JAX.
 """
 
@@ -57,6 +65,13 @@ CONV_SOURCE = "sg2im_tpu_torch/csrc/conv3x3.cu"
 RELAYOUT_SOURCE = "sg2im_tpu_torch/csrc/relayout.cu"
 KERNEL_BAR = 1e-5  # max abs error vs the plain version (tests/test_pallas.py)
 PSNR_BAR = 40.0    # u8 dB, the fidelity gate of the JAX package
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# device memory bytes/s, bf16 tensor FLOP/s, int8 tensor OP/s, f32 FLOP/s
+# outside the tensor cores.
+HBM_BYTES = 3.35e12
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
+F32_FLOPS = 67e12
 
 
 class SmokeFailure(Exception):
@@ -65,6 +80,14 @@ class SmokeFailure(Exception):
 
 def fail(msg: str) -> None:
     raise SmokeFailure(msg)
+
+
+def roofline_ms(nbytes, ops, peak):
+    """The least time for moving ``nbytes`` and doing ``ops`` at ``peak``
+    per second: (ms, "bytes" or "operations", whichever bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES, ops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def psnr_u8(a, b) -> float:
@@ -101,7 +124,8 @@ def phase_build():
         print(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} {source} -> "
               f"{os.path.relpath(path, REPO)} in {seconds:.2f} s")
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln or "smem" in ln:
+            if any(k in ln for k in ("Compiling entry", "registers",
+                                     "spill", "smem")):
                 print(f"[build]   {ln.strip()}")
     print(f"[build] {len(built)} sources in {wall:.2f} s wall")
     _build.load_library()
@@ -201,6 +225,39 @@ def _time_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# (N, O, M, H, W, D) of the layout-compose timing: the serving path at
+# batch 128.
+LAYOUT_TIMED = (128, 16, 16, 128, 128, 128)
+
+
+def layout_bounds(N, O, M, H, W, D, weights):
+    """(bytes, f32 operations) of one layout compose: boxes (or the warp
+    weights Wy, Wx), masks and vecs read once, the f32 layout written once;
+    per object the coefficients Wy . mask . Wx^T, then their sum of the
+    object vectors."""
+    inputs = N * O * (M * M + D) + (N * O * (H + W) * M if weights
+                                    else N * O * 4)
+    nbytes = 4 * (inputs + N * H * W * D)
+    ops = 2 * N * O * (H * M * M + H * W * M) + 2 * N * O * H * W * D
+    return nbytes, ops
+
+
+def relayout_bounds():
+    """{entry: (bound ms, bound by)} of K3 summed over the packed path's
+    batch-128 shapes: each tensor read once and written once."""
+    out = {}
+    for entry, shape, dtype, _ in RELAYOUT_PATH.values():
+        size = {"bfloat16": 2, "float32": 4, "int8": 1}[dtype]
+        nbytes = 2 * size * int(np.prod(shape))
+        out[entry] = out.get(entry, 0.0) + roofline_ms(nbytes, 0, 1.0)[0]
+    return {entry: (ms, "bytes") for entry, ms in out.items()}
+
+
+def weights_library(torch, wy, wx, masks, vecs):
+    """The weights entry's function as one PyTorch call."""
+    return torch.einsum("noyi,noij,noxj,nod->nyxd", wy, masks, wx, vecs)
+
+
 def phase_kernels(torch):
     from sg2im_tpu_torch.inference import full_fp32
     from sg2im_tpu_torch.ops import layout_kernel as lk
@@ -214,10 +271,9 @@ def phase_kernels(torch):
                 errs[entry] = max(errs[entry], err)
 
         # Time at the serving path's batch-128 shape.
-        boxes, masks, vecs = layout_inputs(torch, 128, 16, 16, 128, 128,
-                                           128, seed=7)
-        H = W = 128
-        wy, wx = box_warp_weights(boxes, H, W, 16, 16)
+        N, O, M, H, W, D = LAYOUT_TIMED
+        boxes, masks, vecs = layout_inputs(torch, N, O, M, H, W, D, seed=7)
+        wy, wx = box_warp_weights(boxes, H, W, M, M)
         before = (lk.layout_compose.launches,
                   lk.layout_compose_weights.launches)
         times = {
@@ -230,7 +286,15 @@ def phase_kernels(torch):
             "weights_plain": _time_ms(
                 torch, lambda: lk.layout_compose_weights_ref(
                     wy, wx, masks, vecs)),
+            "weights_library": _time_ms(
+                torch, lambda: weights_library(torch, wy, wx, masks, vecs)),
         }
+        lib_err = (weights_library(torch, wy, wx, masks, vecs)
+                   - lk.layout_compose_weights_ref(wy, wx, masks, vecs)
+                   ).abs().max().item()
+        if lib_err > KERNEL_BAR:
+            fail(f"the one-call einsum is not the weights entry's function: "
+                 f"{lib_err:.3e}")
         if (lk.layout_compose.launches == before[0]
                 or lk.layout_compose_weights.launches == before[1]):
             fail("a timed kernel was not launched")
@@ -238,38 +302,62 @@ def phase_kernels(torch):
     print(f"[kernels] time at N128 O16 M16 128x128 D128 f32 (ms): "
           f"boxes-entry {times['boxes']:.4f} vs plain "
           f"{times['boxes_plain']:.4f}; weights-entry {times['weights']:.4f}"
-          f" vs plain {times['weights_plain']:.4f}; output write "
+          f" vs plain {times['weights_plain']:.4f} vs one einsum "
+          f"{times['weights_library']:.4f}; output write "
           f"{out_gb:.3f} GB -> boxes-entry "
           f"{out_gb / times['boxes'] * 1e3:.0f} GB/s")
     return errs, times
 
 
 # name: (N, H, W, Cin, Co).  The turbo path's four int8 convs at vg128 with
-# the default band, the CRN shapes of the TPU prototype
-# (scripts/proto_pallas_conv.py:162-168), and a ragged case (Cin not a
-# multiple of a chunk or of 16 bytes, Co not a multiple of a tile).
+# the default band.
 TURBO_CONVS = {
     "s3 conv0 feats 32x32 512->256": (32, 32, 512, 256),
     "s3 conv1 32x32 256->256": (32, 32, 256, 256),
     "s4 conv0 feats 64x64 256->128": (64, 64, 256, 128),
     "s4 conv1 64x64 128->128": (64, 64, 128, 128),
 }
+# name: (N, H, W, Cin, Co, element offset of x's data pointer).  The turbo
+# shapes, the CRN shapes of the TPU prototype
+# (scripts/proto_pallas_conv.py:162-168), and cases for the edges of the
+# kernel's tile plan and tensor map: Cin * elem not a multiple of 16 bytes
+# (the padded copy), x off 16-byte alignment, Co not a multiple of a tile,
+# two Co tiles, a partial Cin chunk, W wider than a tile, H = W = 1.
 CONV_CASES = {
-    **{f"turbo {k} N8": (8,) + v for k, v in TURBO_CONVS.items()},
-    "K4 s5 conv0 128x128 288->64 N8": (8, 128, 128, 288, 64),
-    "K4 s5 conv1 128x128 64->64 N8": (8, 128, 128, 64, 64),
-    "K4 s4 conv0 64x64 416->128 N8": (8, 64, 64, 416, 128),
-    "K4 s3 conv0 32x32 672->256 N8": (8, 32, 32, 672, 256),
-    "ragged 13x29 36->20 N2": (2, 13, 29, 36, 20),
+    **{f"turbo {k} N8": (8,) + v + (0,) for k, v in TURBO_CONVS.items()},
+    "K4 s5 conv0 128x128 288->64 N8": (8, 128, 128, 288, 64, 0),
+    "K4 s5 conv1 128x128 64->64 N8": (8, 128, 128, 64, 64, 0),
+    "K4 s4 conv0 64x64 416->128 N8": (8, 64, 64, 416, 128, 0),
+    "K4 s3 conv0 32x32 672->256 N8": (8, 32, 32, 672, 256, 0),
+    "ragged 13x29 36->20 N2": (2, 13, 29, 36, 20, 0),
+    "ragged 9x7 20->24 N3": (3, 9, 7, 20, 24, 0),
+    "unaligned x 11x16 64->40 N2": (2, 11, 16, 64, 40, 1),
+    "Co 20 16x16 64->20 N3": (3, 16, 16, 64, 20, 0),
+    "wide 5x150 48->72 N2": (2, 5, 150, 48, 72, 0),
+    "Co 200 12x12 160->200 N2": (2, 12, 12, 160, 200, 0),
+    "Co 300 9x7 64->300 N2": (2, 9, 7, 64, 300, 0),
+    "1x1 24->8 N3": (3, 1, 1, 24, 8, 0),
 }
 CONV_BF16_BAR = 1e-4  # f32 output: max abs error / max |plain|
 
 
-def conv_inputs(torch, N, H, W, Cin, Co, seed, device="cuda"):
-    """int8 and bf16 operands of one shape from a seed: x channels_last,
-    weights OIHW, dq / scale / bias (Co,) float32."""
+def _at_offset(torch, x, offset):
+    """x (channels_last) copied into a buffer whose data starts ``offset``
+    elements in: a channels_last view off the allocation's alignment."""
+    if offset == 0:
+        return x.contiguous(memory_format=torch.channels_last)
+    N, C, H, W = x.shape
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = flat[offset:].view(N, H, W, C).permute(0, 3, 1, 2)
+    view.copy_(x)
+    return view
+
+
+def conv_inputs(torch, N, H, W, Cin, Co, seed, offset=0, device="cuda"):
+    """int8 and bf16 operands of one shape from a seed: x channels_last
+    (its data ``offset`` elements into its buffer), weights OIHW, dq /
+    scale / bias (Co,) float32."""
     gen = torch.Generator().manual_seed(seed)
-    cl = torch.channels_last
     x8 = torch.randint(-127, 128, (N, Cin, H, W), generator=gen,
                        dtype=torch.int8)
     w8 = torch.randint(-127, 128, (Co, Cin, 3, 3), generator=gen,
@@ -280,9 +368,9 @@ def conv_inputs(torch, N, H, W, Cin, Co, seed, device="cuda"):
           * (2.0 / (9 * Cin)) ** 0.5).to(torch.bfloat16)
     scale = torch.rand(Co, generator=gen) + 0.5
     bias = torch.randn(Co, generator=gen) * 0.1
-    return {"x8": x8.to(device).contiguous(memory_format=cl),
+    return {"x8": _at_offset(torch, x8.to(device), offset),
             "w8": w8.to(device), "dq": dq.to(device),
-            "xb": xb.to(device).contiguous(memory_format=cl),
+            "xb": _at_offset(torch, xb.to(device), offset),
             "wb": wb.to(device), "scale": scale.to(device),
             "bias": bias.to(device)}
 
@@ -294,14 +382,14 @@ def ulps(torch, a, b) -> int:
     return int(diff.abs().max().item())
 
 
-def check_conv_case(torch, name, N, H, W, Cin, Co, seed=0):
+def check_conv_case(torch, name, N, H, W, Cin, Co, offset=0, seed=0):
     """Both conv entries against their plain versions on one input: s8
     bit-equal or within 1 ulp; bf16 entry with f32 output within
     CONV_BF16_BAR * max|plain|, with bf16 output within one bf16 rounding.
     Returns {entry: max abs error}."""
     from sg2im_tpu_torch.ops import conv_kernel as ck
 
-    t = conv_inputs(torch, N, H, W, Cin, Co, seed)
+    t = conv_inputs(torch, N, H, W, Cin, Co, seed, offset)
     s8 = ck.conv3x3_int8(t["x8"], t["w8"], t["dq"])
     s8_ref = ck.conv3x3_int8_ref(t["x8"], t["w8"], t["dq"])
     plain = ck.conv3x3_ref(t["xb"], t["wb"])
@@ -344,10 +432,20 @@ def check_conv_case(torch, name, N, H, W, Cin, Co, seed=0):
     return errs
 
 
+def conv_bounds(N, H, W, Cin, Co, elem_size):
+    """(bytes, operations) of one 3x3 conv: x and the weight read once, the
+    f32 output written once (the scale / bias / dq vectors are noise)."""
+    nbytes = N * H * W * Cin * elem_size + 9 * Cin * Co * elem_size \
+        + N * H * W * Co * 4
+    return nbytes, 2 * N * H * W * 9 * Cin * Co
+
+
 def phase_conv(torch, card):
     """The conv kernel's entries against their plain versions, then their
-    time at batch 128 on the turbo path's shapes beside the plain versions
-    and beside cuDNN's bf16 conv of the same shape."""
+    time at batch 128 on the turbo path's shapes, in turns with cuDNN's
+    bf16 conv of the same shape (kernels, cuDNN, kernels; each kernel's
+    time the lower of its two turns), beside the plain versions, the
+    wrapper's weight packing and the bound."""
     import torch.nn.functional as F
 
     from sg2im_tpu_torch.ops import conv_kernel as ck
@@ -358,37 +456,74 @@ def phase_conv(torch, card):
             for entry, err in check_conv_case(torch, name, *case,
                                               seed=i).items():
                 errs[entry] = max(errs[entry], err)
-        times = {"s8": 0.0, "s8_plain": 0.0, "bf16": 0.0, "bf16_plain": 0.0}
+        keys = ("s8", "s8_plain", "s8_pack", "bf16", "bf16_plain",
+                "bf16_pack", "cudnn_bf16")
+        times = {k: 0.0 for k in keys}
+        turns = {"s8": [0.0, 0.0], "bf16": [0.0, 0.0]}  # sums per turn
+        bounds = {"s8": [0.0, 0.0], "bf16": [0.0, 0.0]}  # [bytes, ops] ms
         for name, (H, W, Cin, Co) in TURBO_CONVS.items():
             t = conv_inputs(torch, 128, H, W, Cin, Co, seed=11)
-            ms = {
-                "s8": _time_ms(torch, lambda: ck.conv3x3_int8(
-                    t["x8"], t["w8"], t["dq"])),
-                # float64 convolution: few iterations.
-                "s8_plain": _time_ms(torch, lambda: ck.conv3x3_int8_ref(
-                    t["x8"], t["w8"], t["dq"]), iters=2, warmup=1),
-                "bf16": _time_ms(torch, lambda: ck.conv3x3(
-                    t["xb"], t["wb"], t["scale"], t["bias"])),
-                "bf16_plain": _time_ms(torch, lambda: ck.conv3x3_ref(
-                    t["xb"], t["wb"], t["scale"], t["bias"]), iters=5,
-                    warmup=1),
-                "cudnn_bf16": _time_ms(torch, lambda: F.conv2d(
-                    t["xb"], t["wb"], padding=1)),
-            }
-            for k in times:
+
+            def s8():
+                return ck.conv3x3_int8(t["x8"], t["w8"], t["dq"])
+
+            def bf16():
+                return ck.conv3x3(t["xb"], t["wb"], t["scale"], t["bias"])
+
+            first = {"s8": _time_ms(torch, s8),
+                     "bf16": _time_ms(torch, bf16)}
+            ms = {"cudnn_bf16": _time_ms(torch, lambda: F.conv2d(
+                t["xb"], t["wb"], padding=1))}
+            second = {"s8": _time_ms(torch, s8),
+                      "bf16": _time_ms(torch, bf16)}
+            for k in ("s8", "bf16"):
+                ms[k] = min(first[k], second[k])
+                turns[k][0] += first[k]
+                turns[k][1] += second[k]
+            for k, w, size in (("s8", t["w8"], 1), ("bf16", t["wb"], 2)):
+                plan = ck.tile_plan(H, W, Cin, Co, size)
+                ms[k + "_pack"] = _time_ms(
+                    torch, lambda: ck.pack_weights(w, plan))
+            # float64 / float32 convolutions: few iterations.
+            ms["s8_plain"] = _time_ms(torch, lambda: ck.conv3x3_int8_ref(
+                t["x8"], t["w8"], t["dq"]), iters=2, warmup=1)
+            ms["bf16_plain"] = _time_ms(torch, lambda: ck.conv3x3_ref(
+                t["xb"], t["wb"], t["scale"], t["bias"]), iters=5, warmup=1)
+            for k in keys:
                 times[k] += ms[k]
-            tops = 2 * 128 * H * W * 9 * Cin * Co / 1e9
-            print(f"[conv] b128 {name} (ms): s8-entry {ms['s8']:.4f} "
-                  f"({tops / ms['s8']:.1f} TOP/s) vs plain f64 "
-                  f"{ms['s8_plain']:.4f}; bf16-entry+epilogue "
-                  f"{ms['bf16']:.4f} ({tops / ms['bf16']:.1f} TFLOP/s) vs "
-                  f"plain f32 {ms['bf16_plain']:.4f}; cuDNN bf16 conv "
-                  f"{ms['cudnn_bf16']:.4f} ({tops / ms['cudnn_bf16']:.1f} "
-                  f"TFLOP/s); on {card}")
+            cudnn = ms["cudnn_bf16"]
+            line = [f"[conv] b128 {name} (ms):"]
+            for entry, size, peak in (("s8", 1, INT8_OPS),
+                                      ("bf16", 2, BF16_FLOPS)):
+                nbytes, ops = conv_bounds(128, H, W, Cin, Co, size)
+                bound, by = roofline_ms(nbytes, ops, peak)
+                bounds[entry][by == "operations"] += bound
+                line.append(
+                    f"{entry}-entry {ms[entry]:.4f} (wrapper, lower turn of "
+                    f"{first[entry]:.4f} / {second[entry]:.4f}; "
+                    f"{ops / ms[entry] / 1e9:.1f} TOP/s, "
+                    f"{100 * bound / ms[entry]:.1f}% of its {bound:.4f} ms "
+                    f"{by} bound, {ms[entry] / cudnn:.2f}x cuDNN) plain "
+                    f"{ms[entry + '_plain']:.4f} pack "
+                    f"{ms[entry + '_pack']:.4f};")
+            line.append(f"cuDNN bf16 conv {cudnn:.4f} "
+                        f"({ops / cudnn / 1e9:.1f} TFLOP/s); on {card}")
+            print(" ".join(line))
             del t
-    print(f"[conv] b128 sum of the four turbo convs (ms): s8-entry "
-          f"{times['s8']:.4f} vs plain {times['s8_plain']:.4f}; bf16-entry "
-          f"{times['bf16']:.4f} vs plain {times['bf16_plain']:.4f}")
+    for entry in ("s8", "bf16"):
+        bound = sum(bounds[entry])
+        print(f"[conv] b128 sum of the four turbo convs, {entry}-entry: "
+              f"{times[entry]:.4f} ms (sums of the turns "
+              f"{turns[entry][0]:.4f} / {turns[entry][1]:.4f}), "
+              f"{100 * bound / times[entry]:.1f}% of "
+              f"its {bound:.4f} ms bound, "
+              f"{times[entry] / times['cudnn_bf16']:.2f}x cuDNN bf16 "
+              f"{times['cudnn_bf16']:.4f}; plain "
+              f"{times[entry + '_plain']:.4f}; weight packing of the four "
+              f"{times[entry + '_pack']:.4f}; on {card}")
+    times["bounds"] = {
+        e: (sum(v), "operations" if v[1] >= v[0] else "bytes")
+        for e, v in bounds.items()}
     return errs, times
 
 
@@ -515,8 +650,20 @@ def kernel_wrappers():
 
 
 def reset_launches():
+    """Every launch count, and the conv wrappers' padded copies, to 0."""
     for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
+        if hasattr(wrapper, "padded_copies"):
+            wrapper.padded_copies = 0
+
+
+def check_no_padded_copies(what):
+    """Fail if a conv on a path took the wrapper's zero-padded input copy:
+    every path shape suits the kernel's tensor map as it is."""
+    for name, wrapper in kernel_wrappers().items():
+        if getattr(wrapper, "padded_copies", 0):
+            fail(f"{what}: {name} padded its input "
+                 f"{wrapper.padded_copies} times")
 
 
 def read_launches() -> dict:
@@ -582,6 +729,7 @@ def phase_checkpoint(torch, launches):
         t_cli = cli_images(common + ["--quantize", "int8",
                                      "--calibration_file", cal])
         path = read_launches()
+        check_no_padded_copies("the turbo CLI")
         cpu_turbo = InferenceEngine.from_torch_checkpoint(
             ckpt, device="cpu", quantize="int8")
         cpu_turbo.load_calibration(cal)
@@ -704,6 +852,7 @@ def phase_vg128(torch, card, launches):
     reset_launches()
     serve("turbo", turbo)
     path = read_launches()
+    check_no_padded_copies("the vg128 turbo requests")
     add_launches(launches, path)
     print(f"[vg128] turbo int8 bf16/split (band {turbo.quant_band()}, tags "
           f"{turbo.expected_quant_tags()}): requests of 1, 3, 8 graphs "
@@ -756,6 +905,7 @@ def phase_vg128(torch, card, launches):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             resident = torch.cuda.memory_allocated()
+            reset_launches()
             windows = []
             for _ in range(5):
                 t0 = time.perf_counter()
@@ -765,6 +915,7 @@ def phase_vg128(torch, card, launches):
                 windows.append((time.perf_counter() - t0) / 3)
             if not torch.isfinite(imgs).all():
                 fail(f"{mode}: non-finite b128 images")
+            check_no_padded_copies(f"the b128 {mode} forwards")
         ms = float(np.median(windows)) * 1e3
         peak = torch.cuda.max_memory_allocated()
         print(f"[vg128] b128 forward {mode}: {128 / ms * 1e3:.1f} img/s, "
@@ -794,25 +945,38 @@ def main() -> int:
     layout_src = "sg2im_tpu/ops/pallas/layout_kernel.py"
     conv_replaces = "scripts/proto_pallas_conv.py:122"
     relayout_src = "sg2im_tpu/ops/pallas/relayout_kernel.py"
+    rl_bounds = relayout_bounds()
+    # (name, source, replaces, max abs err, ms, plain ms, (bound ms, bound
+    # by), one PyTorch call's ms or None)
     rows = [
         ("layout_compose_boxes", KERNEL_SOURCE, f"{layout_src}:241",
-         errs["boxes"], times["boxes"], times["boxes_plain"]),
+         errs["boxes"], times["boxes"], times["boxes_plain"],
+         roofline_ms(*layout_bounds(*LAYOUT_TIMED, weights=False),
+                     F32_FLOPS), None),
         ("layout_compose_weights", KERNEL_SOURCE, f"{layout_src}:89",
-         errs["weights"], times["weights"], times["weights_plain"]),
+         errs["weights"], times["weights"], times["weights_plain"],
+         roofline_ms(*layout_bounds(*LAYOUT_TIMED, weights=True),
+                     F32_FLOPS), times["weights_library"]),
         ("conv3x3_bf16", CONV_SOURCE, conv_replaces, conv_errs["bf16"],
-         conv_times["bf16"], conv_times["bf16_plain"]),
+         conv_times["bf16"], conv_times["bf16_plain"],
+         conv_times["bounds"]["bf16"], conv_times["cudnn_bf16"]),
         ("conv3x3_s8", CONV_SOURCE, conv_replaces, conv_errs["s8"],
-         conv_times["s8"], conv_times["s8_plain"]),
+         conv_times["s8"], conv_times["s8_plain"],
+         conv_times["bounds"]["s8"], None),
         ("relayout_s2d", RELAYOUT_SOURCE, f"{relayout_src}:77",
-         rl_errs["s2d"], rl_times["s2d"], rl_times["s2d_plain"]),
+         rl_errs["s2d"], rl_times["s2d"], rl_times["s2d_plain"],
+         rl_bounds["s2d"], None),
         ("relayout_d2s", RELAYOUT_SOURCE, f"{relayout_src}:91",
-         rl_errs["d2s"], rl_times["d2s"], rl_times["d2s_plain"]),
+         rl_errs["d2s"], rl_times["d2s"], rl_times["d2s_plain"],
+         rl_bounds["d2s"], None),
     ]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches.get(name, 0),
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for name, source, replaces, err, ms, plain_ms in rows]}
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library}
+        for name, source, replaces, err, ms, plain_ms, bound, library
+        in rows]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,8 +43,8 @@ SOURCES = {
             [_PTR, _PTR, _PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR],
     },
     "conv3x3.cu": {
-        "sg2im_conv3x3_bf16": [_PTR] * 5 + [_INT] * 7 + [_PTR],
-        "sg2im_conv3x3_s8": [_PTR] * 4 + [_INT] * 5 + [_PTR],
+        "sg2im_conv3x3_bf16": [_PTR] * 5 + [_INT] * 10 + [_PTR],
+        "sg2im_conv3x3_s8": [_PTR] * 4 + [_INT] * 8 + [_PTR],
     },
     "relayout.cu": {
         "sg2im_space_to_depth": [_PTR] * 2 + [_INT] * 5 + [_PTR],

@@ -15,6 +15,14 @@ each wrapper launches the kernel or raises; for a CPU tensor it computes
 the plain version (``conv3x3_ref``, ``conv3x3_int8_ref``).
 ``<wrapper>.launches`` counts kernel launches and nothing else.
 
+The kernel takes its weights as tiles laid out for its shared memory:
+``pack_weights`` builds them from the OIHW weight on every call (the turbo
+tier quantizes its weights per call), by the plan of ``tile_plan``, which
+the wrapper also hands to the kernel.  The kernel reads its input through a
+TMA tensor map, which needs a 16-byte aligned base and a channel row of a
+multiple of 16 bytes; an input without them (no shape of the CRN's paths)
+goes through one zero-padded copy, counted in ``<wrapper>.padded_copies``.
+
 The int8 plain version convolves in float64, which is exact here: a sum
 of 9 * Cin products of int8 values stays far below 2^53.  (A float32
 convolution is not exact once |acc| passes 2^24, and ``F.conv2d`` on int8
@@ -23,11 +31,20 @@ tensors returns int8 and wraps.)
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 LEAKY_SLOPE = 0.2
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+# The kernel's tiles (kTileM, kChunkBytes and the BN it is built for in
+# csrc/conv3x3.cu): output pixels per block, input-channel bytes per K step
+# (one row of the 128-byte swizzle), output-channel tile widths.
+TILE_M = 128
+CHUNK_BYTES = 128
+_BN = (128, 256)
 
 
 def _epilogue(y, scale, bias):
@@ -107,10 +124,73 @@ def _check_kernel_inputs(x, weight, dtype, vectors: dict):
         raise ValueError("tensor too large for the kernel's indexing")
 
 
-def _tap_major(weight) -> torch.Tensor:
-    """OIHW -> (9 * Cin, Co), tap-major: the kernel's weight layout."""
+class TilePlan(NamedTuple):
+    """How the kernel cuts one convolution: blocks of TH x TW output pixels
+    (TH * TW <= TILE_M) by BN output channels, K walked in steps of one
+    chunk of ``chunk`` input channels (CHUNK_BYTES) by one tap."""
+    TH: int
+    TW: int
+    tiles_h: int
+    tiles_w: int
+    BN: int
+    co_tiles: int
+    chunk: int
+    n_chunks: int
+
+
+def tile_plan(H, W, Cin, Co, elem_size) -> TilePlan:
+    """The kernel's tile plan for an (H, W) image, Cin -> Co channels of
+    ``elem_size`` bytes: whole image rows up to TILE_M pixels, and all of
+    Co in one tile up to 256 channels."""
+    TW = min(W, TILE_M)
+    TH = min(TILE_M // TW, H)
+    BN = next((b for b in _BN if Co <= b), _BN[-1])
+    chunk = CHUNK_BYTES // elem_size
+    return TilePlan(TH, TW, -(-H // TH), -(-W // TW), BN, -(-Co // BN),
+                    chunk, -(-Cin // chunk))
+
+
+@functools.lru_cache(maxsize=64)
+def _pack_index(Co, Cin, plan: TilePlan, device) -> torch.Tensor:
+    """For every element of the packed tiles, its index in the flattened
+    OIHW weight, or Co * Cin * 9 (a zero appended to it) past Co or Cin."""
+    ct, nch, BN, ch = plan.co_tiles, plan.n_chunks, plan.BN, plan.chunk
+    unit = ch // 8                      # elements per 16 bytes
+    co = torch.arange(ct * BN).reshape(ct, 1, 1, BN, 1)
+    chunk = torch.arange(nch).reshape(1, nch, 1, 1, 1)
+    tap = torch.arange(9).reshape(1, 1, 9, 1, 1)
+    pos = torch.arange(ch).reshape(1, 1, 1, 1, ch)
+    # Stored 16-byte unit k of row r holds logical unit k ^ (r % 8).
+    ci = chunk * ch + ((pos // unit) ^ (co % BN % 8)) * unit + pos % unit
+    src = (co * Cin + ci) * 9 + tap
+    src = torch.where((co < Co) & (ci < Cin), src, Co * Cin * 9)
+    return src.to(device)
+
+
+def pack_weights(weight, plan: TilePlan) -> torch.Tensor:
+    """OIHW -> the kernel's weight tiles (co_tiles, n_chunks, 9, BN, chunk)
+    in weight's dtype: tap = 3 * ky + kx, zero past Co and Cin, and each
+    (BN, 128-byte) tile in the 128-byte swizzle, so that one bulk copy
+    lands it in shared memory as wgmma reads it.  One gather through an
+    index cached per shape and device."""
     Co, Cin = weight.shape[:2]
-    return weight.permute(2, 3, 1, 0).reshape(9 * Cin, Co).contiguous()
+    flat = F.pad(weight.reshape(-1), (0, 1))
+    return flat[_pack_index(Co, Cin, plan, weight.device)]
+
+
+def _tma_input(x, wrapper):
+    """x's NHWC data as the kernel's tensor map takes it: a 16-byte aligned
+    base and a row of Cin channels a multiple of 16 bytes.  Otherwise one
+    zero-padded copy, counted in ``wrapper.padded_copies``.  Returns
+    (tensor, channels)."""
+    N, Cin, H, W = x.shape
+    unit = 16 // x.element_size()
+    if Cin % unit == 0 and x.data_ptr() % 16 == 0:
+        return x, Cin
+    xp = x.new_zeros((N, H, W, -(-Cin // unit) * unit))
+    xp[..., :Cin] = x.permute(0, 2, 3, 1)
+    wrapper.padded_copies += 1
+    return xp, xp.shape[-1]
 
 
 def _nhwc_out(x, Co, dtype):
@@ -141,15 +221,17 @@ def conv3x3(x, weight, scale=None, bias=None,
     lib = load_library()
     N, Cin, H, W = x.shape
     Co = weight.shape[0]
-    w = _tap_major(weight)
+    plan = tile_plan(H, W, Cin, Co, 2)
+    w = pack_weights(weight, plan)
+    xk, cin_k = _tma_input(x, conv3x3)
     out, view = _nhwc_out(x, Co, out_dtype)
     with torch.cuda.device(x.device):
         rc = lib.sg2im_conv3x3_bf16(
-            x.data_ptr(), w.data_ptr(),
+            xk.data_ptr(), w.data_ptr(),
             None if scale is None else scale.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            N, H, W, Cin, Co, int(scale is not None),
-            int(out_dtype == torch.bfloat16),
+            N, H, W, cin_k, Co, plan.TH, plan.TW, plan.BN,
+            int(scale is not None), int(out_dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sg2im_conv3x3_bf16 launch failed: cudaError {rc}")
@@ -173,12 +255,15 @@ def conv3x3_int8(xq, wq, dq) -> torch.Tensor:
     lib = load_library()
     N, Cin, H, W = xq.shape
     Co = wq.shape[0]
-    w = _tap_major(wq)
+    plan = tile_plan(H, W, Cin, Co, 1)
+    w = pack_weights(wq, plan)
+    xk, cin_k = _tma_input(xq, conv3x3_int8)
     out, view = _nhwc_out(xq, Co, torch.float32)
     with torch.cuda.device(xq.device):
         rc = lib.sg2im_conv3x3_s8(
-            xq.data_ptr(), w.data_ptr(), dq.data_ptr(), out.data_ptr(),
-            N, H, W, Cin, Co, torch.cuda.current_stream().cuda_stream)
+            xk.data_ptr(), w.data_ptr(), dq.data_ptr(), out.data_ptr(),
+            N, H, W, cin_k, Co, plan.TH, plan.TW, plan.BN,
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sg2im_conv3x3_s8 launch failed: cudaError {rc}")
     conv3x3_int8.launches += 1
@@ -187,3 +272,5 @@ def conv3x3_int8(xq, wq, dq) -> torch.Tensor:
 
 conv3x3.launches = 0
 conv3x3_int8.launches = 0
+conv3x3.padded_copies = 0
+conv3x3_int8.padded_copies = 0

@@ -75,9 +75,8 @@ def test_wrappers_reject_what_the_kernel_does_not_take(card):
 
 @pytest.mark.parametrize("name", sorted(chip_smoke.CONV_CASES))
 def test_conv_entries_match_plain_versions(card, name):
-    N, H, W, Cin, Co = chip_smoke.CONV_CASES[name]
     before = (ck.conv3x3.launches, ck.conv3x3_int8.launches)
-    chip_smoke.check_conv_case(torch, name, N, H, W, Cin, Co)
+    chip_smoke.check_conv_case(torch, name, *chip_smoke.CONV_CASES[name])
     assert (ck.conv3x3.launches, ck.conv3x3_int8.launches) == \
         (before[0] + 3, before[1] + 1)
 
