@@ -11,9 +11,12 @@ with a non-zero exit code:
 2. build: nvcc builds csrc/layout_compose.cu, csrc/conv3x3.cu and
    csrc/relayout.cu for sm_90a, one process each, started together;
 3. kernels: both entries of the layout-compose kernel against their plain
-   PyTorch version on the card (flagship shapes, a ragged case, degenerate
-   boxes with empty object slots), then their time beside the plain
-   version's at the flagship batch-128 shape;
+   PyTorch versions on the card, in f32 and bf16 (flagship shapes, ragged
+   cases, degenerate boxes with empty object slots, and for the weights
+   entry dense signed weights, M = 32, H not a multiple of its band and
+   more objects than one group), then their time at the flagship batch-128
+   shape beside the plain versions, one einsum of the weights entry's
+   function and a fill_ of the output's bytes;
 4. conv: both entries of the 3x3 conv kernel (bf16, and the turbo tier's
    int8) against their plain versions on the turbo path's shapes, the
    CRN shapes of the TPU prototype and the edges of the kernel's tile plan
@@ -132,11 +135,19 @@ def phase_build():
 
 
 KERNEL_CASES = {
-    # name: (N, O, M, H, W, D, degenerate boxes and empty object slots)
-    "vg128 N16 O16 M16 128x128 D128": (16, 16, 16, 128, 128, 128, False),
-    "ragged N3 O5 M8 24x40 D13": (3, 5, 8, 24, 40, 13, False),
-    "ragged N2 O7 M16 40x250 D36": (2, 7, 16, 40, 250, 36, False),
-    "degenerate N2 O40 M16 64x64 D200": (2, 40, 16, 64, 64, 200, True),
+    # name: (N, O, M, H, W, D, degenerate boxes and empty object slots,
+    # dense random signed Wy / Wx for the weights entry instead of the
+    # boxes' tents)
+    "vg128 N16 O16 M16 128x128 D128": (16, 16, 16, 128, 128, 128, False,
+                                       False),
+    "ragged N3 O5 M8 24x40 D13": (3, 5, 8, 24, 40, 13, False, False),
+    "ragged N2 O7 M16 40x250 D36": (2, 7, 16, 40, 250, 36, False, False),
+    "degenerate N2 O40 M16 64x64 D200": (2, 40, 16, 64, 64, 200, True,
+                                         False),
+    "dense N4 O16 M16 128x128 D128": (4, 16, 16, 128, 128, 128, False, True),
+    "M32 N3 O9 M32 64x96 D64": (3, 9, 32, 64, 96, 64, False, True),
+    "band-ragged N2 O6 M6 37x72 D32": (2, 6, 6, 37, 72, 32, False, True),
+    "groups N2 O120 M8 9x128 D64": (2, 120, 8, 9, 128, 64, False, False),
 }
 
 
@@ -160,9 +171,30 @@ def layout_inputs(torch, N, O, M, H, W, D, seed, degenerate=False,
     return tuple(torch.tensor(a, device=device) for a in (boxes, masks, vecs))
 
 
-def check_kernel_case(torch, name, N, O, M, H, W, D, degenerate, seed=0):
-    """Both kernel entries against the plain version on one input, at
-    KERNEL_BAR abs; the float64 errors printed beside say which side a
+def dense_weights(torch, N, O, M, H, W, seed, device="cuda"):
+    """Dense, signed warp weights wy (N, O, H, M), wx (N, O, W, M) from a
+    seed, uniform in [-1, 1) / sqrt(M): nothing like tents, every tap
+    non-zero, sums of the size the tents give."""
+    rng = np.random.RandomState(seed + 1000)
+    scale = np.float32(1.0 / np.sqrt(M))
+    wy = rng.uniform(-1, 1, (N, O, H, M)).astype(np.float32) * scale
+    wx = rng.uniform(-1, 1, (N, O, W, M)).astype(np.float32) * scale
+    return torch.tensor(wy, device=device), torch.tensor(wx, device=device)
+
+
+def plan_text(plan) -> str:
+    return (f"TH {plan.TH} TX {plan.TX} G {plan.G} oc {plan.oc} PX "
+            f"{plan.PX} {plan.threads} threads, "
+            f"st.global stores, {plan.smem} B smem")
+
+
+def check_kernel_case(torch, name, N, O, M, H, W, D, degenerate, dense,
+                      seed=0):
+    """Both kernel entries against their plain versions on one input, in f32
+    at KERNEL_BAR abs and in bf16 within one rounding; with degenerate
+    boxes, a zero-area object adds exactly 0 through either entry.  The
+    weights entry takes the boxes' tent weights, or with ``dense`` dense
+    signed ones.  The float64 errors printed beside say which side a
     difference comes from.  Returns {entry: max abs error}.
     """
     from sg2im_tpu_torch.ops import layout_kernel as lk
@@ -170,43 +202,55 @@ def check_kernel_case(torch, name, N, O, M, H, W, D, degenerate, seed=0):
 
     boxes, masks, vecs = layout_inputs(torch, N, O, M, H, W, D, seed,
                                        degenerate)
-    want = lk.layout_compose_ref(boxes, masks, vecs, H, W)
-    wy, wx = box_warp_weights(boxes, H, W, M, M)
-    exact = lk.layout_compose_weights_ref(wy.double(), wx.double(),
-                                          masks.double(), vecs.double())
-    got = {"boxes": lk.layout_compose(boxes, masks, vecs, H, W),
-           "weights": lk.layout_compose_weights(wy, wx, masks, vecs)}
-    got_bf16 = lk.layout_compose(boxes, masks, vecs, H, W,
-                                 out_dtype=torch.bfloat16)
-    torch.cuda.synchronize()
+    tents = box_warp_weights(boxes, H, W, M, M)
+    wy, wx = dense_weights(torch, N, O, M, H, W, seed) if dense else tents
+
+    def exact(wy, wx):
+        return lk.layout_compose_weights_ref(wy.double(), wx.double(),
+                                             masks.double(), vecs.double())
+
+    entries = {  # entry: (kernel(vecs, out_dtype), plain, float64)
+        "boxes": (lambda v, dt: lk.layout_compose(boxes, masks, v, H, W,
+                                                  out_dtype=dt),
+                  lk.layout_compose_ref(boxes, masks, vecs, H, W),
+                  exact(*tents)),
+        "weights": (lambda v, dt: lk.layout_compose_weights(
+                        wy, wx, masks, v, out_dtype=dt),
+                    lk.layout_compose_weights_ref(wy, wx, masks, vecs),
+                    exact(wy, wx)),
+    }
     errs = {}
     line = [f"[kernels] {name}:"]
-    for entry, out in got.items():
+    for entry, (kernel, want, f64) in entries.items():
+        out = kernel(vecs, torch.float32)
+        out_bf16 = kernel(vecs, torch.bfloat16)
+        torch.cuda.synchronize()
         if not torch.isfinite(out).all():
             fail(f"{entry} entry gave non-finite values on {name}")
         errs[entry] = (out - want).abs().max().item()
         line.append(
             f"{entry} max_abs_err={errs[entry]:.3e} (vs f64 "
-            f"{(out.double() - exact).abs().max().item():.3e})")
+            f"{(out.double() - f64).abs().max().item():.3e}; plain vs f64 "
+            f"{(want.double() - f64).abs().max().item():.3e})")
         if errs[entry] > KERNEL_BAR:
             fail(f"{entry} entry disagrees with the plain version on {name}:"
                  f" {errs[entry]:.3e} > {KERNEL_BAR}")
-    plain_err = (want.double() - exact).abs().max().item()
-    line.append(f"plain vs f64 {plain_err:.3e}, max|out| "
-                f"{want.abs().max().item():.2f}")
-    # bf16 output: within one bf16 rounding of the f32 result.
-    bf_err = (got_bf16.float() - want).abs()
-    line.append(f"bf16-out max_abs_err={bf_err.max().item():.3e}")
-    if not bool((bf_err <= want.abs() * 2.0 ** -8 + KERNEL_BAR).all()):
-        fail(f"bf16 output off by more than one rounding on {name}")
-    if degenerate:
-        # A zero-area object adds exactly nothing.
-        lone = torch.zeros_like(vecs)
-        lone[:, 2] = vecs[:, 2] + 1.0
-        z = lk.layout_compose(boxes, masks, lone, H, W)
-        if z.abs().max().item() != 0.0:
-            fail("a degenerate box leaked into the layout")
-        line.append("degenerate-box output exactly 0")
+        # bf16 output: within one bf16 rounding of the f32 result.
+        bf_err = (out_bf16.float() - want).abs()
+        line.append(f"bf16-out {bf_err.max().item():.3e};")
+        if not bool((bf_err <= want.abs() * 2.0 ** -8 + KERNEL_BAR).all()):
+            fail(f"{entry} entry's bf16 output off by more than one "
+                 f"rounding on {name}")
+        if degenerate:
+            # A zero-area object adds exactly nothing.
+            lone = torch.zeros_like(vecs)
+            lone[:, 2] = vecs[:, 2] + 1.0
+            if kernel(lone, torch.float32).abs().max().item() != 0.0:
+                fail(f"a degenerate box leaked into the {entry} entry's "
+                     f"layout")
+            line.append("degenerate-box output exactly 0;")
+    line.append(f"max|out| {entries['weights'][1].abs().max().item():.2f}; "
+                f"weights plan {plan_text(lk.weights_plan(O, H, W, M, D))}")
     print(" ".join(line))
     return errs
 
@@ -258,7 +302,7 @@ def weights_library(torch, wy, wx, masks, vecs):
     return torch.einsum("noyi,noij,noxj,nod->nyxd", wy, masks, wx, vecs)
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, card):
     from sg2im_tpu_torch.inference import full_fp32
     from sg2im_tpu_torch.ops import layout_kernel as lk
     from sg2im_tpu_torch.ops.layout import box_warp_weights
@@ -298,14 +342,29 @@ def phase_kernels(torch):
         if (lk.layout_compose.launches == before[0]
                 or lk.layout_compose_weights.launches == before[1]):
             fail("a timed kernel was not launched")
-    out_gb = 128 * 128 * 128 * 128 * 4 / 1e9
+        # The write's yardstick: a fill_ of as many bytes as the output.
+        dst = torch.empty((N, H, W, D), device="cuda")
+        times["fill"] = _time_ms(torch, lambda: dst.fill_(1.0))
+        del dst
+    out_gb = N * H * W * D * 4 / 1e9
+    plan = lk.weights_plan(O, H, W, M, D)
+    bound, by = roofline_ms(*layout_bounds(*LAYOUT_TIMED, weights=True),
+                            F32_FLOPS)
     print(f"[kernels] time at N128 O16 M16 128x128 D128 f32 (ms): "
           f"boxes-entry {times['boxes']:.4f} vs plain "
           f"{times['boxes_plain']:.4f}; weights-entry {times['weights']:.4f}"
           f" vs plain {times['weights_plain']:.4f} vs one einsum "
           f"{times['weights_library']:.4f}; output write "
           f"{out_gb:.3f} GB -> boxes-entry "
-          f"{out_gb / times['boxes'] * 1e3:.0f} GB/s")
+          f"{out_gb / times['boxes'] * 1e3:.0f} GB/s, weights-entry "
+          f"{out_gb / times['weights'] * 1e3:.0f} GB/s; fill_ of "
+          f"{out_gb:.3f} GB {times['fill']:.4f} "
+          f"({out_gb / times['fill'] * 1e3:.0f} GB/s); on {card}")
+    print(f"[kernels] weights-entry at b128: "
+          f"{100 * bound / times['weights']:.1f}% of its {bound:.4f} ms "
+          f"{by} bound, {times['weights'] / times['weights_library']:.2f}x "
+          f"the einsum, {times['weights'] / times['fill']:.2f}x the fill_; "
+          f"plan {plan_text(plan)}")
     return errs, times
 
 
@@ -936,7 +995,7 @@ def main() -> int:
         return 1
     card = phase_environment(torch)
     phase_build()
-    errs, times = phase_kernels(torch)
+    errs, times = phase_kernels(torch, card)
     conv_errs, conv_times = phase_conv(torch, card)
     rl_errs, rl_times = phase_relayout(torch, card)
     launches = {}

@@ -40,7 +40,7 @@ SOURCES = {
         "sg2im_layout_compose_boxes":
             [_PTR, _PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR],
         "sg2im_layout_compose_weights":
-            [_PTR, _PTR, _PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR],
+            [_PTR, _PTR, _PTR, _PTR, _PTR] + [_INT] * 12 + [_PTR],
     },
     "conv3x3.cu": {
         "sg2im_conv3x3_bf16": [_PTR] * 5 + [_INT] * 10 + [_PTR],

@@ -10,8 +10,10 @@ their launch counters.
 into an (N, H, W, D) NHWC tensor.  They replace the TPU kernels of
 ``sg2im_tpu/ops/pallas/layout_kernel.py``: ``fused_layout_compose_v2`` and
 ``fused_layout_compose``.  The CUDA source is ``csrc/layout_compose.cu``; its
-header says why the kernel is bound by the output write and what the design
-does about it.
+header says why the kernels are bound by the output write and what each
+design does about it.  ``weights_plan`` is the weights kernel's cut of one
+call (bands of rows, column tiles, object groups and chunks); the wrapper
+passes it to the launch.
 
 For a CUDA tensor each wrapper launches the kernel or raises; for a CPU
 tensor it computes the plain version (``layout_compose_ref``,
@@ -23,11 +25,102 @@ launches and nothing else.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from sg2im_tpu_torch.ops.sampling import separable_sample
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+# The weights kernel's constants (csrc/layout_compose.cu).
+TILE_D = 128         # channels per block
+W_THREADS = 256      # threads per block at most
+X_PER, D_PER = 8, 4  # output pixels (along a row) x channels of one thread
+MAX_BAND = 32        # output rows per block
+MAX_CHUNK = 8        # objects per staged chunk
+MAX_PX = 128         # output pixels per pass
+SMEM_BUDGET = 115712  # bytes of shared memory: two blocks per SM
+
+
+class WeightsPlan(NamedTuple):
+    """How the weights kernel cuts one call: blocks of TH output rows by
+    TX columns by TILE_D channels; per block, objects in ``groups`` groups
+    of G, each group's coefficients built in chunks of ``oc`` objects, then
+    per pass of PX consecutive pixels of the TH x TX tile (row-major; TX a
+    multiple of PX, or PX a multiple of TX) the sums of all of the group's
+    objects, stored from registers.  ``smem``: dynamic shared memory bytes,
+    as the source's ``make_plan`` computes them."""
+    TH: int
+    TX: int
+    G: int
+    oc: int
+    PX: int
+    threads: int
+    n_bands: int
+    x_tiles: int
+    d_tiles: int
+    groups: int
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wx_row_pitch(M: int) -> tuple[int, int]:
+    """(Mr, S): M rounded up to 4, and the padded Wx row in shared memory,
+    S / 4 odd, so 16-byte reads of eight neighbouring rows hit eight
+    distinct bank quads."""
+    Mr = _cdiv(M, 4) * 4
+    return Mr, Mr + (4 if (Mr // 4) % 2 == 0 else 0)
+
+
+def weights_plan(O: int, H: int, W: int, M: int, D: int) -> WeightsPlan:
+    """The weights kernel's plan: of the tiles whose coefficients, vectors
+    and staged chunks fit SMEM_BUDGET, the one that stages the fewest bytes
+    per output pixel; object groups of G < O where none holds all
+    objects."""
+    Mr, S = wx_row_pitch(M)
+    d_tiles = _cdiv(D, TILE_D)
+    d_groups = _cdiv(min(D, TILE_D), D_PER)
+    x_groups = min(W_THREADS // d_groups, _cdiv(W, X_PER), MAX_PX // X_PER)
+    PX = X_PER * x_groups
+
+    def fits(G, TH, TX):
+        held = 4 * G * TH * TX + 4 * G * D_PER * d_groups
+        oc = min(MAX_CHUNK, G)
+        while oc >= 1:
+            chunk = 4 * oc * (TX * S + M * Mr + TH * Mr)
+            total = held + 2 * chunk + 4 * oc * TH * Mr
+            if total <= SMEM_BUDGET:
+                return G, TH, TX, oc, total
+            oc //= 2
+        return None
+
+    # Column tiles of whole passes or dividing a pass, by bands of 32, 16,
+    # ... 1 rows, all objects in one group: the least staged bytes per
+    # pixel, (M + TH + TX) / (TH * TX), first on a tie.
+    found, best = None, None
+    TX = _cdiv(W, PX) * PX
+    while TX % X_PER == 0 and (TX >= PX or PX % TX == 0):
+        for t in (32, 16, 8, 4, 2, 1):
+            TH = min(t, H)
+            if TX < PX and TH * TX % PX:
+                continue
+            num, den = M + TH + TX, TH * TX
+            if best and num * best[1] >= best[0] * den:
+                continue
+            f = fits(O, TH, TX)
+            if f:
+                found, best = f, (num, den)
+        TX = TX - PX if TX > PX else TX // 2
+    # Else groups of G < O objects: one pass per block, sums carried over.
+    found = found or next(filter(None, (fits(g, 1, PX)
+                                        for g in range(O - 1, 0, -1))))
+    G, TH, TX, oc, smem = found
+    return WeightsPlan(TH, TX, G, oc, PX, d_groups * x_groups, _cdiv(H, TH),
+                       _cdiv(W, TX), d_tiles, _cdiv(O, G), smem)
 
 
 def layout_compose_weights_ref(wy, wx, masks, vecs) -> torch.Tensor:
@@ -155,19 +248,19 @@ def layout_compose_weights(wy, wx, masks, vecs,
     if _on_cpu(wy, wx, masks, vecs):
         return layout_compose_weights_ref(
             wy.float(), wx.float(), masks.float(), vecs.float()).to(out_dtype)
-    D = vecs.shape[-1]
     _check_kernel_inputs({"wy": wy, "wx": wx, "masks": masks, "vecs": vecs},
                          N, O, M, H, W, out_dtype)
     from sg2im_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+    D = vecs.shape[-1]
+    plan = weights_plan(O, H, W, M, D)
     out = torch.empty((N, H, W, D), dtype=out_dtype, device=vecs.device)
     with torch.cuda.device(vecs.device):
-        rc = lib.sg2im_layout_compose_weights(
+        rc = load_library().sg2im_layout_compose_weights(
             wy.data_ptr(), wx.data_ptr(), masks.data_ptr(), vecs.data_ptr(),
             out.data_ptr(), N, O, H, W, M, D,
-            int(out_dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            int(out_dtype == torch.bfloat16), plan.TH, plan.TX, plan.G,
+            plan.oc, plan.PX, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sg2im_layout_compose_weights launch failed: "
                            f"cudaError {rc}")

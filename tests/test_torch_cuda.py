@@ -57,6 +57,53 @@ def test_masks_to_layout_auto_launches_the_kernel(card):
     assert lk.layout_compose.launches == before + 2
 
 
+def test_masks_to_layout_with_weights_launches_the_weights_kernel(card):
+    boxes, masks, vecs = chip_smoke.layout_inputs(torch, 2, 5, 8, 24, 40,
+                                                  16, seed=3)
+    weights = chip_smoke.dense_weights(torch, 2, 5, 8, 24, 40, seed=3)
+    obj_mask = torch.tensor([[1, 1, 0, 1, 0], [1, 0, 1, 1, 1]],
+                            dtype=torch.float32, device=card)
+    before = (lk.layout_compose.launches, lk.layout_compose_weights.launches)
+    for pooling in ("sum", "avg"):
+        got = tlayout.masks_to_layout(vecs, boxes, masks, obj_mask, 24, 40,
+                                      pooling=pooling, weights=weights)
+        assert lk.layout_compose_weights.launches == before[1] + (
+            1 if pooling == "sum" else 2)
+        want = tlayout.masks_to_layout(vecs, boxes, masks, obj_mask, 24, 40,
+                                       pooling=pooling, backend="torch",
+                                       weights=weights)
+        assert (got - want).abs().max().item() <= chip_smoke.KERNEL_BAR
+    assert lk.layout_compose.launches == before[0]
+
+
+def test_weights_entry_refuses_a_tile_it_cannot_run(card):
+    """The C entry takes its tile from the wrapper's plan and refuses, with
+    cudaErrorInvalidValue (1), one that breaks the kernel's layout."""
+    from sg2im_tpu_torch.ops._build import load_library
+
+    N, O, M, H, W, D = 1, 3, 8, 16, 16, 8
+    _, masks, vecs = chip_smoke.layout_inputs(torch, N, O, M, H, W, D, seed=4)
+    wy, wx = chip_smoke.dense_weights(torch, N, O, M, H, W, seed=4)
+    out = torch.empty((N, H, W, D), device=card)
+    plan = lk.weights_plan(O, H, W, M, D)
+
+    def launch(p):
+        rc = load_library().sg2im_layout_compose_weights(
+            wy.data_ptr(), wx.data_ptr(), masks.data_ptr(), vecs.data_ptr(),
+            out.data_ptr(), N, O, H, W, M, D, 0, p.TH, p.TX, p.G, p.oc,
+            p.PX, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return rc
+
+    assert launch(plan) == 0
+    want = lk.layout_compose_weights_ref(wy, wx, masks, vecs)
+    assert (out - want).abs().max().item() <= chip_smoke.KERNEL_BAR
+    for bad in (plan._replace(TX=12), plan._replace(PX=136),
+                plan._replace(TH=33), plan._replace(oc=plan.G + 1),
+                plan._replace(G=1, TH=2)):
+        assert launch(bad) == 1, bad
+
+
 def test_wrappers_reject_what_the_kernel_does_not_take(card):
     boxes, masks, vecs = chip_smoke.layout_inputs(torch, 1, 3, 8, 16, 16, 8,
                                                   seed=4)
