@@ -36,11 +36,24 @@ with a non-zero exit code:
    answers generate requests of 1, 3 and 8 graphs in float32, bf16 /
    'split', the turbo tier, bf16 / 'packed', 'phase' and 'split_noise'
    and float32 / 'packed', agrees with the CPU engines on a small input,
-   and its batch-128 forward is timed in each mode.
+   and its batch-128 forward is timed in each mode;
+8. serving over HTTP: the port's server (sg2im_tpu_torch.cli.serve) with
+   the same vg128 weights, written as a checkpoint, in bf16 / 'split', on
+   the turbo tier at a calibration file made on the card and in bf16 /
+   'phase': healthz, PNG and npy replies, a seeded reply bit-equal to
+   engine.generate, concurrent requests coalesced into fewer engine calls
+   (each within 1 u8 level of the request alone), kernel launches per
+   engine call and /metrics against what was sent; bf16 / 'split' img/s
+   of coalesced batch-128 rounds beside engine.generate and the forward,
+   1-graph latency from the server's histogram and host ms per request;
+   the on-device deprocess against the host's, noise_downsample=2 on zero
+   noise against full resolution, and verify_pretrained --device cuda on
+   the learned checkpoint against the CPU engine's images.
 
 Each path (the turbo CLI, the vg128 requests of f32 and bf16/split, the
-turbo requests, the requests of each further CRN mode) runs with the
-kernels' launch counts set to 0 just before it and read just after; the
+turbo requests, the requests of each further CRN mode, the HTTP traffic of
+each server) runs with the kernels' launch counts set to 0 just before it
+and read just after; the
 conv wrappers' padded input copies, counted the same way, must stay 0 on
 every path and in every timed batch-128 forward.
 The line before the last is a JSON summary of every ported kernel with
@@ -986,6 +999,469 @@ def phase_vg128(torch, card, launches):
               f"weights and the inputs), on {card}")
 
 
+SERVE_WINDOW_MS = 30.0   # the smoke servers' --batch_window_ms
+SERVE_CLIENTS = 8        # concurrent requests of SERVE_GRAPHS graphs each:
+SERVE_GRAPHS = 16        # one coalesced batch of 128
+HTTP_TIMEOUT = 300       # seconds, per HTTP call and per server start
+# The turbo tier's coalesced replies against each request alone: an int8
+# step of an activation can turn the forward's batch-size dependence (one
+# bf16 rounding, within 1 u8 level without int8) into 2 levels.
+TURBO_COALESCED_U8 = 2
+TURBO_COALESCED_DB = 55.0
+
+
+def write_vg128_checkpoint(torch, path, seed=0):
+    """The vg128 generator with random weights from ``seed`` (the weights
+    of phase_vg128) as a reference-layout .pt; returns its vocab."""
+    from sg2im_tpu_torch.models import Sg2ImGenerator
+
+    vocab, kwargs = vg128_config()
+    model = Sg2ImGenerator(vocab, **kwargs)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    torch.save({"model_state": model.state_dict(),
+                "model_kwargs": dict(kwargs, vocab=vocab)}, path)
+    return vocab
+
+
+class SmokeServer:
+    """The port's serve_forever in a thread on port 0, as a context
+    manager; shut down and joined on exit."""
+
+    def __init__(self, argv):
+        from sg2im_tpu_torch.cli.serve import build_parser
+
+        self.args = build_parser().parse_args(argv + ["--port", "0"])
+
+    def __enter__(self):
+        import threading
+
+        from sg2im_tpu_torch.cli.serve import serve_forever
+
+        self.ready = threading.Event()
+        self.thread = threading.Thread(target=serve_forever,
+                                       args=(self.args, self.ready),
+                                       daemon=True)
+        self.thread.start()
+        if not self.ready.wait(timeout=HTTP_TIMEOUT):
+            fail("a smoke server did not start")
+        self.state = self.ready.state
+        self.engine = self.state.engine
+        self.base = f"http://127.0.0.1:{self.ready.httpd.server_address[1]}"
+        return self
+
+    def __exit__(self, *exc):
+        self.ready.httpd.shutdown()
+        self.thread.join(timeout=HTTP_TIMEOUT)
+        if self.thread.is_alive():
+            fail("a smoke server did not stop")
+
+    def get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(self.base + path,
+                                    timeout=HTTP_TIMEOUT) as r:
+            return r.read()
+
+    def post(self, payload):
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.base + "/generate", data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            return json.loads(r.read())
+
+    def post_all(self, payloads):
+        """POST the payloads concurrently, one thread each; the replies in
+        order."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(len(payloads)) as pool:
+            return list(pool.map(self.post, payloads))
+
+
+def reply_images(reply) -> np.ndarray:
+    """The (n, H, W, 3) uint8 images of a 'png' or 'npy' reply."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    raw = [base64.b64decode(s) for s in reply["images"]]
+    if reply["format"] == "png":
+        return np.stack([np.asarray(Image.open(io.BytesIO(b))) for b in raw])
+    return np.stack([np.frombuffer(b, np.uint8).reshape(reply["shape"])
+                     for b in raw])
+
+
+def drive_server(torch, name, server, vocab, rng, card, needs,
+                 coalesced_max=1, coalesced_psnr=None):
+    """One server's main path: healthz; a seeded PNG request, the same
+    request as npy and two 'zeros' requests, each sent alone and answered
+    by an engine call of its own; SERVE_CLIENTS concurrent requests
+    coalesced into fewer engine calls; launch counts against the server's
+    engine calls and /metrics against the requests sent.  Then the replies
+    against the server's own engine called directly on the server's engine
+    thread: the seeded request alone bit-equal to ``engine.generate``; the
+    coalesced replies bit-equal to ``engine.generate`` of the merged batch
+    with the merged noise, and each request alone bit-equal to its 16
+    graphs with the same noise rows given explicitly, so that what stays
+    between coalesced and alone (held to ``coalesced_max`` u8 levels and,
+    if given, ``coalesced_psnr`` dB) is the forward's own dependence on the
+    batch size.  ``needs``: {kernel: launches per engine call}.  Returns
+    the launches."""
+    health = json.loads(server.get("/healthz"))
+    if health["status"] != "ok" or health["image_size"] != [128, 128]:
+        fail(f"{name}: /healthz gave {health}")
+    if health.get("int8_calibrated") is False:
+        fail(f"{name}: the turbo server is not calibrated")
+    solo = random_graphs(vocab, 3, rng)
+    batch = [random_graphs(vocab, SERVE_GRAPHS, rng)
+             for _ in range(SERVE_CLIENTS)]
+    reset_launches()
+    sent = [0, 0]  # requests, images
+    batcher = server.state.batcher
+
+    def count(payloads):
+        sent[0] += len(payloads)
+        sent[1] += sum(len(p["scene_graphs"]) for p in payloads)
+
+    def alone(payload):
+        calls0 = batcher.engine_calls
+        reply = server.post(payload)
+        count([payload])
+        if batcher.engine_calls != calls0 + 1:
+            fail(f"{name}: a request sent alone took "
+                 f"{batcher.engine_calls - calls0} engine calls, not 1")
+        return reply
+
+    png = alone({"scene_graphs": solo, "seed": 17})
+    npy = alone({"scene_graphs": solo, "seed": 17, "return": "npy"})
+    zeros = [alone({"scene_graphs": solo, "noise": "zeros", "return": "npy"})
+             for _ in range(2)]
+    calls0 = batcher.engine_calls
+    payloads = [{"scene_graphs": g, "seed": 100 + i, "return": "npy"}
+                for i, g in enumerate(batch)]
+    coalesced = server.post_all(payloads)
+    count(payloads)
+    calls = batcher.engine_calls - calls0
+    path = read_launches()
+    engine_calls = batcher.engine_calls
+    check_no_padded_copies(f"the {name} server")
+    metrics = json.loads(server.get("/metrics?format=json"))
+    text = server.get("/metrics").decode()
+    print(f"[serve] {name}: {sent[0]} requests, {sent[1]} images over HTTP "
+          f"in {engine_calls} engine calls (4 requests alone in 4; "
+          f"{SERVE_CLIENTS} concurrent requests of {SERVE_GRAPHS} graphs in "
+          f"{calls}); kernel launches {path}")
+    if calls >= SERVE_CLIENTS:
+        fail(f"{name}: {SERVE_CLIENTS} concurrent requests took {calls} "
+             f"engine calls: nothing coalesced")
+    for kernel, per_call in needs.items():
+        if path[kernel] != per_call * engine_calls:
+            fail(f"{name}: {kernel} launched {path[kernel]} times in "
+                 f"{engine_calls} engine calls, not {per_call} per call")
+    if (metrics["requests"], metrics["images"]) != tuple(sent) or (
+            f"sg2im_requests_total {sent[0]}\n" not in text
+            or f"sg2im_images_total {sent[1]}\n" not in text
+            or metrics["engine_calls"] != engine_calls):
+        fail(f"{name}: /metrics counted {metrics}, sent {sent}")
+
+    png_u8, npy_u8 = reply_images(png), reply_images(npy)
+    if png_u8.shape != (3, 128, 128, 3) or not np.array_equal(png_u8,
+                                                              npy_u8):
+        fail(f"{name}: the PNG reply {png_u8.shape} differs from the npy one")
+    if zeros[0]["images"] != zeros[1]["images"]:
+        fail(f"{name}: two 'zeros' requests, two engine calls, differ")
+    engine = server.engine
+
+    def generate(*args, **kw):
+        return batcher.worker.submit(engine.generate, *args, **kw).result()[0]
+
+    with batcher.device_lock:
+        want = generate(solo, seed=17)
+        if not np.array_equal(npy_u8, want):
+            fail(f"{name}: a seeded reply differs from engine.generate: "
+                 f"{int((npy_u8 != want).sum())} values")
+        got = np.concatenate([reply_images(r) for r in coalesced])
+        noise = torch.cat([engine.draw_noise(SERVE_GRAPHS, 100 + i)
+                           for i in range(SERVE_CLIENTS)]).permute(0, 2, 3, 1)
+        merged = generate([g for b in batch for g in b], noise=noise)
+        by_request = np.concatenate([
+            generate(g, seed=100 + i) for i, g in enumerate(batch)])
+        explicit = np.concatenate([
+            generate(g, noise=noise[i * SERVE_GRAPHS:(i + 1) * SERVE_GRAPHS])
+            for i, g in enumerate(batch)])
+    # One merged call is the rule at this window; with more, the merged
+    # batch's split is not known here and only the limits below hold.
+    if calls == 1 and not np.array_equal(got, merged):
+        fail(f"{name}: coalesced replies differ from engine.generate of the "
+             f"merged batch: {int((got != merged).sum())} values")
+    if not np.array_equal(by_request, explicit):
+        fail(f"{name}: a seeded b{SERVE_GRAPHS} generate differs from the "
+             f"same noise given explicitly: "
+             f"{int((by_request != explicit).sum())} values")
+    print(f"[serve] {name}: a seeded 3-graph request alone bit-equal to "
+          f"engine.generate; PNG equals npy; two 'zeros' requests equal; "
+          f"coalesced replies "
+          f"{'bit-equal to' if calls == 1 else 'NOT CHECKED against'} "
+          f"engine.generate b128 of the merged graphs and noise; each "
+          f"request's b{SERVE_GRAPHS} generate bit-equal with seeded and "
+          f"explicit noise; /metrics {metrics['requests']} requests, "
+          f"{metrics['images']} images, {metrics['engine_calls']} engine "
+          f"calls; on {card}")
+    # The server's coalesced replies against each request alone, and the
+    # engine's b128 against its b16 calls on the same graphs and noise.
+    for what, x, y in (
+            ("coalesced replies vs each request alone", got, by_request),
+            (f"engine.generate b128 vs b{SERVE_GRAPHS} on the same noise",
+             merged, explicit)):
+        d = np.abs(x.astype(int) - y)
+        worst, p = int(d.max()), psnr_u8(x, y)
+        print(f"[serve] {name}: {what}: max |diff| {worst} u8 "
+              f"({int((d > 0).sum())} values differ, {int((d > 1).sum())} by "
+              f"more than 1, of {d.size}), u8 PSNR {p:.2f} dB; on {card}")
+        if worst > coalesced_max or (coalesced_psnr is not None
+                                     and p < coalesced_psnr):
+            fail(f"{name}: {what}: {worst} u8 levels ({p:.2f} dB) apart "
+                 f"(limits {coalesced_max} u8, {coalesced_psnr} dB)")
+    return path
+
+
+def http_client(base, rounds, single=None, repeats=0):
+    """An HTTP client, run in a process of its own so that it does not
+    share the server's interpreter lock: the payloads of each round posted
+    concurrently (one thread each), then ``single`` posted ``repeats``
+    times in sequence.  Every reply is read and parsed in full.  Returns
+    (seconds per round, seconds per sequential request)."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    def post(payload):
+        req = urllib.request.Request(
+            base + "/generate", data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            reply = json.loads(r.read())
+        if len(reply["images"]) != len(payload["scene_graphs"]):
+            raise RuntimeError(f"a reply of {len(reply['images'])} images")
+
+    round_s, request_s = [], []
+    with ThreadPoolExecutor(max(map(len, rounds), default=1)) as pool:
+        for payloads in rounds:
+            t0 = time.perf_counter()
+            list(pool.map(post, payloads))
+            round_s.append(time.perf_counter() - t0)
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        post(single)
+        request_s.append(time.perf_counter() - t0)
+    return round_s, request_s
+
+
+def time_server(torch, server, vocab, rng, card):
+    """bf16/split serving numbers: img/s of coalesced batch-128 rounds over
+    HTTP from a client process beside engine.generate and the forward
+    alone; p50 / p99 of sequential 1-graph requests from the server's
+    histogram and as the client saw them; host ms per request split into
+    encoding, the noise draw, the generate call and the reply's encoding."""
+    import base64
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from sg2im_tpu_torch.cli.serve import _LatencyHistogram, _png_bytes
+    from sg2im_tpu_torch.data import encode_scene_graphs
+    from sg2im_tpu_torch.inference import full_fp32, pad_bucket
+
+    rounds = {}
+    one = random_graphs(vocab, 1, rng)
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as client:
+        for fmt in ("npy", "png"):
+            payloads = [[{"scene_graphs": random_graphs(vocab, SERVE_GRAPHS,
+                                                        rng),
+                          "seed": i, "return": fmt}
+                         for i in range(SERVE_CLIENTS)] for _ in range(6)]
+            calls0 = server.state.batcher.engine_calls
+            runs = client.submit(http_client, server.base,
+                                 payloads).result()[0][1:]  # 1st: warm-up
+            rounds[fmt] = (SERVE_CLIENTS * SERVE_GRAPHS * len(runs)
+                           / sum(runs), runs,
+                           server.state.batcher.engine_calls - calls0)
+        server.state.latency = _LatencyHistogram()
+        seen = client.submit(http_client, server.base, [],
+                             {"scene_graphs": one, "seed": 0},
+                             50).result()[1]
+    lat = json.loads(server.get("/metrics?format=json"))["request_latency_ms"]
+    seen_ms = np.percentile(np.asarray(seen) * 1e3, [50, 99])
+
+    engine = server.engine
+    graphs = random_graphs(vocab, 128, rng)
+    with server.state.batcher.device_lock:
+        engine.generate(graphs, seed=1)
+        t0 = time.perf_counter()
+        for i in range(3):
+            engine.generate(graphs, seed=i)
+        gen_ms = (time.perf_counter() - t0) / 3 * 1e3
+        b = encode_scene_graphs(graphs, vocab, align=engine.pad_align)
+        dev = engine.device
+        args = (torch.as_tensor(b.objs, device=dev).long(),
+                torch.as_tensor(b.triples, device=dev).long(),
+                torch.as_tensor(b.obj_mask, device=dev).float(),
+                torch.as_tensor(b.triple_mask, device=dev).float(),
+                engine.draw_noise(128, 0).contiguous(
+                    memory_format=torch.channels_last))
+        with torch.inference_mode(), full_fp32():
+            engine.model(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                engine.model(*args)
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) / 3 * 1e3
+
+        split = {}
+        for n in (1, 128):
+            g = graphs[:n]
+            ms = {"encode": [], "noise": [], "generate": [], "reply": []}
+            for i in range(5):
+                t0 = time.perf_counter()
+                encode_scene_graphs(g, vocab, align=engine.pad_align)
+                t1 = time.perf_counter()
+                engine.draw_noise(pad_bucket(n), i)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                imgs, out = engine.generate(g, seed=i)
+                t3 = time.perf_counter()
+                json.dumps({"images": [base64.b64encode(_png_bytes(im))
+                                       .decode("ascii") for im in imgs],
+                            "boxes": out["boxes"].float().cpu().numpy()
+                            .tolist()})
+                t4 = time.perf_counter()
+                for k, v in zip(ms, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                    ms[k].append(v * 1e3)
+            split[n] = {k: float(np.median(v)) for k, v in ms.items()}
+
+    for fmt, (img_s, runs, calls) in rounds.items():
+        print(f"[serve] bf16/split over HTTP from a client process, "
+              f"{SERVE_CLIENTS} concurrent requests of {SERVE_GRAPHS} graphs "
+              f"('{fmt}' replies, --batch_window_ms {SERVE_WINDOW_MS:g}): "
+              f"{img_s:.1f} img/s (rounds {[round(r * 1e3, 2) for r in runs]}"
+              f" ms; {calls} engine calls for {len(runs) + 1} rounds, the "
+              f"first untimed); on {card}")
+    print(f"[serve] bf16/split b128 in the same call: engine.generate "
+          f"{128 / gen_ms * 1e3:.1f} img/s ({gen_ms:.2f} ms: encoding, "
+          f"noise, forward, deprocess, copy to the host), the forward alone "
+          f"{128 / fwd_ms * 1e3:.1f} img/s ({fwd_ms:.2f} ms); on {card}")
+    print(f"[serve] bf16/split 1-graph PNG requests, 50 in sequence "
+          f"(--batch_window_ms {SERVE_WINDOW_MS:g} included): server "
+          f"histogram p50 {lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} "
+          f"(mean {lat['mean_ms']:.3f}, min {lat['min_ms']:.3f}, max "
+          f"{lat['max_ms']:.3f}); as the client saw them p50 "
+          f"{seen_ms[0]:.3f} ms, p99 {seen_ms[1]:.3f}; on {card}")
+    for n, ms in split.items():
+        print(f"[serve] bf16/split host ms per request of {n} graph(s), "
+              f"median of 5: encode {ms['encode']:.3f}, noise draw "
+              f"{ms['noise']:.3f}, generate call {ms['generate']:.3f} "
+              f"(encode and noise included), PNG + base64 + JSON reply "
+              f"{ms['reply']:.3f}; on {card}")
+
+
+def phase_serve(torch, card, launches):
+    """The port's HTTP server at vg128 full width on the card: bf16/split,
+    the turbo tier at a calibration file made on the card, and 'phase',
+    each driven over HTTP with its launches counted; the serving numbers
+    of bf16/split; the on-device deprocess against the host's; seeded
+    noise drawn at half resolution against full resolution on zero noise;
+    verify_pretrained on the learned checkpoint against the CPU engine's
+    images."""
+    from PIL import Image
+
+    from sg2im_tpu_torch.ckpt import load_reference_checkpoint
+    from sg2im_tpu_torch.cli import verify_pretrained
+    from sg2im_tpu_torch.data import imagenet_deprocess_batch
+    from sg2im_tpu_torch.inference import InferenceEngine
+
+    rng = np.random.RandomState(6)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "vg128.pt")
+        vocab = write_vg128_checkpoint(torch, ckpt)
+        common = ["--checkpoint", ckpt, "--device", "cuda", "--bf16", "1",
+                  "--warmup", "1,16", "--max_graphs", "128",
+                  "--batch_window_ms", str(SERVE_WINDOW_MS)]
+        with SmokeServer(common + ["--crn_mode", "split"]) as server:
+            add_launches(launches, drive_server(
+                torch, "bf16/split", server, vocab, rng, card,
+                {"layout_compose_boxes": 1}))
+            time_server(torch, server, vocab, rng, card)
+            engine = server.engine
+            graphs = random_graphs(vocab, 16, rng)
+            with server.state.batcher.device_lock:
+                u8, out = engine.generate(graphs, seed=3)
+                host = imagenet_deprocess_batch(
+                    out["imgs"].permute(0, 2, 3, 1).cpu().numpy())
+                zeros, _ = engine.generate(graphs, noise="zeros")
+            differ = int((u8 != host).sum())
+            bundle = load_reference_checkpoint(ckpt)
+            half = InferenceEngine.from_bundle(
+                bundle, device="cuda", compute_dtype=torch.bfloat16,
+                crn_mode="split", noise_downsample=2)
+            half_zeros, _ = half.generate(graphs, noise="zeros")
+            noise = half.draw_noise(4, seed=5)
+            tiles = all(torch.equal(noise[:, :, 0::2, 0::2],
+                                    noise[:, :, dy::2, dx::2])
+                        for dy in (0, 1) for dx in (0, 1))
+            print(f"[serve] deprocess on the card vs the host's deprocess of "
+                  f"the same float images: {differ} of {u8.size} values "
+                  f"differ; noise_downsample=2 with zero noise vs f = 1: "
+                  f"{'equal' if np.array_equal(half_zeros, zeros) else 'DIFFERENT'}"
+                  f", seeded draw constant over 2x2 tiles: {tiles}")
+            if differ or not np.array_equal(half_zeros, zeros) or not tiles:
+                fail("on-device deprocess or noise_downsample disagrees")
+            del half, bundle
+
+        cal = os.path.join(tmp, "calibration.json")
+        turbo = InferenceEngine.from_torch_checkpoint(
+            ckpt, device="cuda", compute_dtype=torch.bfloat16,
+            crn_mode="split", quantize="int8")
+        turbo.calibrate(random_graphs(vocab, 16, rng), seed=100)
+        turbo.save_calibration(cal)
+        del turbo
+        with SmokeServer(common + ["--crn_mode", "split", "--quantize",
+                                   "int8", "--calibration_file",
+                                   cal]) as server:
+            add_launches(launches, drive_server(
+                torch, "turbo int8 bf16/split", server, vocab, rng, card,
+                {"layout_compose_boxes": 1, "conv3x3_s8": 4},
+                coalesced_max=TURBO_COALESCED_U8,
+                coalesced_psnr=TURBO_COALESCED_DB))
+        with SmokeServer(common + ["--crn_mode", "phase"]) as server:
+            path = drive_server(torch, "bf16/phase", server, vocab, rng, card,
+                                {"layout_compose_boxes": 1})
+            add_launches(launches, path)
+            if path["relayout_d2s"] == 0:
+                fail("the phase server never launched the relayout d2s")
+
+        # verify_pretrained on the card, goldens from the CPU engine.
+        trained = os.path.join(REPO, "artifacts", "trained_coco64.pt")
+        sgs = os.path.join(REPO, "artifacts", "trained_scene_graphs.json")
+        with open(sgs) as f:
+            scene_graphs = json.load(f)
+        golden = os.path.join(tmp, "golden")
+        os.makedirs(golden)
+        cpu = InferenceEngine.from_torch_checkpoint(trained, device="cpu")
+        for i, img in enumerate(cpu.generate(scene_graphs, noise="zeros")[0]):
+            Image.fromarray(img).save(os.path.join(golden, f"img{i:06d}.png"))
+        rc = verify_pretrained.main(
+            ["--checkpoint", trained, "--scene_graphs_json", sgs,
+             "--golden_dir", golden, "--output_dir",
+             os.path.join(tmp, "verify"), "--device", "cuda"])
+        print(f"[serve] verify_pretrained --device cuda on trained_coco64 "
+              f"against the CPU engine's goldens: exit {rc}")
+        if rc != 0:
+            fail(f"verify_pretrained exited {rc}")
+
+
 def main() -> int:
     import torch
 
@@ -1001,6 +1477,7 @@ def main() -> int:
     launches = {}
     phase_checkpoint(torch, launches)
     phase_vg128(torch, card, launches)
+    phase_serve(torch, card, launches)
     layout_src = "sg2im_tpu/ops/pallas/layout_kernel.py"
     conv_replaces = "scripts/proto_pallas_conv.py:122"
     relayout_src = "sg2im_tpu/ops/pallas/relayout_kernel.py"

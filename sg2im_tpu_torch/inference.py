@@ -3,20 +3,26 @@
 Counterpart of ``sg2im_tpu/inference.py`` (upstream ``scripts/run_model.py``
 + ``Sg2ImModel.forward_json``).  Graphs are encoded and padded on the host,
 the batch is padded to a power-of-two bucket, the generator runs under
-``torch.inference_mode`` on the engine's device, and images are deprocessed
-on the host.
+``torch.inference_mode`` on the engine's device (a CUDA card unless the
+caller asks for another), and images are deprocessed there too, so uint8
+is fetched (a quarter of the float32 bytes; the bytes equal the host
+``imagenet_deprocess_batch``'s).
 
 Precision: every forward runs with TF32 off for both cuBLAS and cuDNN
 (restored afterwards), so float32 layers are true float32.  With
 ``compute_dtype=torch.bfloat16`` only the CRN chain runs in bf16.
 
 Seeded noise contract: with ``noise=None`` the layout noise of padded row
-``i`` is the ``(i + 1)``-th draw of shape (layout_noise_dim, H, W) from
-``torch.randn`` with a ``torch.Generator`` on the engine's device seeded
-with ``seed``.  A row's noise therefore does not depend on the padded batch
-size: the same graph at the same position with the same seed gives the same
-image in every pad bucket.  The values differ between device types (CPU
-and CUDA generators differ) and from the JAX package's threefry draws.
+``i`` is the ``(i + 1)``-th draw of shape (layout_noise_dim, H / f, W / f)
+from ``torch.randn`` with a ``torch.Generator`` on the engine's device
+seeded with ``seed``, nearest-upsampled by f = ``noise_downsample`` (1 by
+default: full resolution).  A row's noise therefore does not depend on the
+padded batch size: the same graph at the same position with the same seed
+gives the same image in every pad bucket, and a server that coalesces
+requests draws each request's rows with :meth:`InferenceEngine.draw_noise`
+exactly as the request alone would.  The values differ between device
+types (CPU and CUDA generators differ) and from the JAX package's threefry
+draws.
 
 int8 turbo tier (``quantize='int8'``): the CRN's high-resolution stages
 run on the int8 conv kernel at calibrated activation scales.  An
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import threading
 import warnings
 
 import numpy as np
@@ -40,31 +47,60 @@ from sg2im_tpu_torch.ckpt import load_reference_checkpoint
 from sg2im_tpu_torch.data import (
     GraphBatch,
     encode_scene_graphs,
-    imagenet_deprocess_batch,
+    imagenet_deprocess_batch_torch,
 )
 from sg2im_tpu_torch.models.sg2im import Sg2ImGenerator
 
 
+class _Fp32Scope:
+    """The TF32 switches are process-wide, and engines on several devices
+    run forwards in several threads at once (the server's replicas): the
+    first block to enter turns TF32 off, the last to leave restores it."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.depth = 0
+        self.saved = None
+
+
+_FP32 = _Fp32Scope()
+
+
 @contextlib.contextmanager
 def full_fp32():
-    """TF32 off for cuBLAS and cuDNN inside the block, restored after."""
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """TF32 off for cuBLAS and cuDNN inside the block, restored after the
+    last block open in any thread ends."""
+    with _FP32.lock:
+        if _FP32.depth == 0:
+            _FP32.saved = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _FP32.depth += 1
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev
+        with _FP32.lock:
+            _FP32.depth -= 1
+            if _FP32.depth == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _FP32.saved
+
+
+def pad_bucket(n: int) -> int:
+    """The padded batch of ``n`` graphs: the next power of two."""
+    return max(1, 1 << (n - 1).bit_length()) if n else 1
 
 
 def seeded_noise(n: int, shape, seed: int, device) -> torch.Tensor:
     """(n,) + shape standard normals, row i the (i + 1)-th draw of ``shape``
     from a generator on ``device`` seeded with ``seed`` (see the module
     docstring)."""
+    seed = int(seed)
+    if not -(1 << 63) <= seed < (1 << 64):
+        raise ValueError(f"seed must fit 64 bits, got {seed}")
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    gen.manual_seed(seed)
     return torch.stack([torch.randn(tuple(shape), generator=gen,
                                     device=device) for _ in range(n)])
 
@@ -75,15 +111,16 @@ class InferenceEngine:
     CALIBRATION_FORMAT = "sg2im_tpu.int8_calibration.v1"
     _QUANT_KNOBS = ("head", "min_res", "max_res")
 
-    def __init__(self, vocab, model_kwargs, state_dict, *, device,
+    def __init__(self, vocab, model_kwargs, state_dict, *, device="cuda",
                  pad_align: int = 8, compute_dtype=None, crn_mode=None,
-                 quantize=None, quant_opts=None):
+                 quantize=None, quant_opts=None, noise_downsample: int = 1):
         """
         Args:
           vocab: dict with object/predicate name <-> index maps.
           model_kwargs: ``Sg2ImGenerator`` arguments (without vocab).
           state_dict: generator weights under upstream's names.
-          device: where the generator runs ('cuda', 'cuda:1', 'cpu', ...).
+          device: where the generator runs ('cuda', 'cuda:1', 'cpu', ...);
+            a CUDA card unless the caller asks for another.
           pad_align: object and triple slots are padded to a multiple.
           compute_dtype: None (float32) or torch.bfloat16 (bf16 CRN).
           crn_mode: None ('legacy'), 'split', 'split_noise', 'phase' or
@@ -93,12 +130,24 @@ class InferenceEngine:
           quant_opts: the tier's band, merged key by key into the default
             {'max_res': 64}: 'head' (bool), 'min_res', 'max_res' (layout
             resolutions); a None value restores the model's default.
+          noise_downsample: f in {1, 2, 4}: seeded noise is drawn at
+            (H / f, W / f) and nearest-upsampled on the device (the noise
+            becomes constant over f x f tiles).  'zeros' and explicit
+            noise are untouched.
         """
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             # Never run elsewhere than asked.
             raise RuntimeError(f"device {self.device} requested but CUDA is "
                                "not available")
+        if noise_downsample not in (1, 2, 4):
+            raise ValueError(f"noise_downsample must be 1, 2 or 4, got "
+                             f"{noise_downsample!r}")
+        H, W = model_kwargs.get("image_size", (64, 64))
+        if H % noise_downsample or W % noise_downsample:
+            raise ValueError(f"noise_downsample {noise_downsample} does not "
+                             f"divide image_size ({H}, {W})")
+        self.noise_downsample = int(noise_downsample)
         self.vocab = vocab
         self.model_kwargs = dict(model_kwargs)
         if compute_dtype is not None:
@@ -128,10 +177,31 @@ class InferenceEngine:
         self.model = model.to(self.device)
 
     @classmethod
-    def from_torch_checkpoint(cls, path, *, device, **kw) -> "InferenceEngine":
+    def from_torch_checkpoint(cls, path, **kw) -> "InferenceEngine":
         """Engine from a reference-layout ``.pt`` checkpoint."""
-        vocab, model_kwargs, state = load_reference_checkpoint(path)
-        return cls(vocab, model_kwargs, state, device=device, **kw)
+        return cls.from_bundle(load_reference_checkpoint(path), **kw)
+
+    @classmethod
+    def from_bundle(cls, bundle, **kw) -> "InferenceEngine":
+        """Engine from an already loaded ``(vocab, model_kwargs,
+        state_dict)``, as ``load_reference_checkpoint`` returns it: replicas
+        on several devices read the checkpoint once."""
+        vocab, model_kwargs, state = bundle
+        return cls(vocab, model_kwargs, state, **kw)
+
+    def draw_noise(self, n: int, seed: int) -> torch.Tensor | None:
+        """The seeded layout noise of ``n`` rows, (n, D, H, W) on the
+        engine's device (None for a noiseless model): the module
+        docstring's contract, which a request's rows keep in any batch."""
+        noise_dim = self.model.layout_noise_dim
+        if noise_dim == 0:
+            return None
+        H, W = self.model.image_size
+        f = self.noise_downsample
+        out = seeded_noise(n, (noise_dim, H // f, W // f), seed, self.device)
+        if f > 1:
+            out = out.repeat_interleave(f, dim=2).repeat_interleave(f, dim=3)
+        return out
 
     def _noise(self, noise, seed: int, N: int) -> torch.Tensor | None:
         noise_dim = self.model.layout_noise_dim
@@ -139,7 +209,7 @@ class InferenceEngine:
             return None
         H, W = self.model.image_size
         if noise is None:
-            out = seeded_noise(N, (noise_dim, H, W), seed, self.device)
+            out = self.draw_noise(N, seed)
         elif isinstance(noise, str):
             if noise != "zeros":
                 raise ValueError(f"noise must be None, 'zeros' or an array, "
@@ -148,13 +218,18 @@ class InferenceEngine:
         else:
             # An explicit (n, H, W, noise_dim) array, NHWC as the JAX
             # package takes it; rows beyond n (bucket padding) are zeros.
-            arr = torch.as_tensor(np.asarray(noise, np.float32))
+            # A tensor already on the engine's device stays there.
+            if not isinstance(noise, torch.Tensor):
+                noise = torch.as_tensor(np.asarray(noise, np.float32))
+            arr = noise.to(self.device, torch.float32)
             if arr.shape[0] > N or arr.shape[1:] != (H, W, noise_dim):
                 raise ValueError(
                     f"noise must be (n <= {N}, {H}, {W}, {noise_dim}), got "
                     f"{tuple(arr.shape)}")
-            out = torch.zeros((N, noise_dim, H, W), device=self.device)
-            out[: arr.shape[0]] = arr.to(self.device).permute(0, 3, 1, 2)
+            out = arr.permute(0, 3, 1, 2)
+            if arr.shape[0] < N:
+                out = torch.cat([out, out.new_zeros(
+                    (N - arr.shape[0], noise_dim, H, W))])
         return out.contiguous(memory_format=torch.channels_last)
 
     # -- int8 turbo tier: calibration ---------------------------------------
@@ -293,7 +368,8 @@ class InferenceEngine:
 
         Args:
           noise: None (seeded, see the module docstring), 'zeros', or an
-            (n, H, W, layout_noise_dim) array.
+            (n, H, W, layout_noise_dim) array or tensor (n <= N; a tensor
+            on the engine's device is used where it lies).
 
         Returns:
           dict of tensors on the device: imgs (N, 3, H, W) float32 in the
@@ -317,13 +393,49 @@ class InferenceEngine:
         return {"imgs": imgs, "boxes": boxes, "masks": masks,
                 "rel_scores": rel_scores}
 
+    def warmup(self, batch_sizes=(1,), scene_graph=None, seed: int = 0):
+        """Run each serving path once per graph-count bucket, so that the
+        first real request pays neither the kernels' nvcc build nor
+        cuDNN's first calls.  cuDNN keeps its execution plans per thread:
+        call this on the thread that will serve.
+
+        A trivial scene graph (or ``scene_graph``, which sets the object
+        and triple pad bucket) goes through :meth:`generate` with zero
+        and, for a noisy model, seeded noise at each batch size.  int8
+        tier: an uncalibrated engine also runs its calibrating forward,
+        and scales recorded here are discarded, since warmup graphs are no
+        representative data; a calibrated engine keeps its scales.
+
+        Returns the padded (N, O, T) shape of each bucket.
+        """
+        sg = scene_graph or {"objects": [], "relationships": []}
+        keep_scales = not self._quantized or self.calibrated
+        noises = ("zeros", None) if self.model.layout_noise_dim else ("zeros",)
+        shapes = []
+        for n in batch_sizes:
+            graphs = [sg] * n
+            for noise in noises:
+                if not keep_scales:
+                    self._act_scales.values = None  # the calibrating forward
+                    self.generate(graphs, noise=noise, seed=seed,
+                                  deprocess=False)
+                self.generate(graphs, noise=noise, seed=seed)
+            batch = encode_scene_graphs(graphs, self.vocab,
+                                        align=self.pad_align)
+            shapes.append((pad_bucket(n), batch.objs.shape[1],
+                           batch.triples.shape[1]))
+        if not keep_scales:
+            self._act_scales.values = None  # the first real batch calibrates
+        return shapes
+
     def generate(self, scene_graphs, noise=None, seed: int = 0,
                  deprocess: bool = True, _calibrate: bool = False):
         """Scene graph dict(s) -> (images, outputs).
 
         The batch is padded to a power-of-two bucket and the padded rows
         are dropped from the result.  ``images`` is (n, H, W, 3) uint8
-        numpy when ``deprocess``, else (n, H, W, 3) float32 numpy in the
+        numpy when ``deprocess`` (deprocessed on the engine's device and
+        fetched as uint8), else (n, H, W, 3) float32 numpy in the
         preprocessed space; ``outputs`` is :meth:`generate_batch`'s dict cut
         to the n real rows.
         """
@@ -332,13 +444,13 @@ class InferenceEngine:
         n_real = len(scene_graphs)
         batch = encode_scene_graphs(scene_graphs, self.vocab,
                                     align=self.pad_align)
-        n_pad = max(1, 1 << (n_real - 1).bit_length()) if n_real else 1
+        n_pad = pad_bucket(n_real)
         if n_pad > n_real:
             batch = batch.pad_rows(n_pad)
         out = self.generate_batch(batch, noise=noise, seed=seed,
                                   _calibrate=_calibrate)
         out = {k: (None if v is None else v[:n_real]) for k, v in out.items()}
-        imgs = out["imgs"].float().permute(0, 2, 3, 1).cpu().numpy()
-        if deprocess:
-            imgs = imagenet_deprocess_batch(imgs)
-        return imgs, out
+        imgs = out["imgs"].permute(0, 2, 3, 1)
+        imgs = imagenet_deprocess_batch_torch(imgs) if deprocess \
+            else imgs.float()
+        return imgs.contiguous().cpu().numpy(), out

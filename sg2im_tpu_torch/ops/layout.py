@@ -10,6 +10,10 @@ along the channel axis and the box warp is separable, so
 (``ops/layout_kernel.py``) and through the plain version for CPU tensors.
 Layouts are returned NHWC, as the JAX package returns them; the generator
 views them as NCHW with ``permute(0, 3, 1, 2)``, which costs nothing.
+The flat (ragged) APIs ``boxes_to_layout_flat`` / ``masks_to_layout_flat``
+take upstream's signature (objects of all images in one list, with
+``obj_to_img``); they are plain PyTorch, as their JAX counterparts are
+plain jnp.
 """
 
 from __future__ import annotations
@@ -148,3 +152,41 @@ def masks_to_layout(vecs, boxes, masks, obj_mask, H: int,
         out = layout_compose_weights(*weights, masks, v,
                                      out_dtype=kernel_dtype)
     return _apply_avg(out, obj_mask, pooling, vecs.shape[1]).to(out_dtype)
+
+
+def boxes_to_layout_flat(vecs, boxes, obj_to_img, H: int,
+                         W: int | None = None, pooling: str = "sum",
+                         num_imgs: int | None = None) -> torch.Tensor:
+    """Upstream's ragged ``boxes_to_layout`` signature: vecs (O, D), boxes
+    (O, 4), obj_to_img (O,) -> (N, H, W, D), N = ``num_imgs`` or
+    ``obj_to_img.max() + 1``."""
+    W = H if W is None else W
+    N = int(num_imgs) if num_imgs is not None else int(obj_to_img.max()) + 1
+    return _compose_flat(box_warp(boxes, H, W), vecs, obj_to_img, N, pooling)
+
+
+def masks_to_layout_flat(vecs, boxes, masks, obj_to_img, H: int,
+                         W: int | None = None, pooling: str = "sum",
+                         num_imgs: int | None = None) -> torch.Tensor:
+    """Upstream's ragged ``masks_to_layout`` signature: as
+    :func:`boxes_to_layout_flat`, with masks (O, M, M)."""
+    W = H if W is None else W
+    N = int(num_imgs) if num_imgs is not None else int(obj_to_img.max()) + 1
+    warp = mask_warp(boxes, masks.to(vecs.dtype), H, W)
+    return _compose_flat(warp, vecs, obj_to_img, N, pooling)
+
+
+def _compose_flat(warp, vecs, obj_to_img, N: int, pooling: str):
+    """out[n] = sum over objects o of image n of warp[o] * vecs[o]: warp
+    (O, H, W), vecs (O, D) -> (N, H, W, D)."""
+    O, H, W = warp.shape
+    onehot = torch.nn.functional.one_hot(obj_to_img.long(), N).to(vecs.dtype)
+    vec_n = onehot[:, :, None] * vecs[:, None, :]  # (O, N, D)
+    out = torch.einsum("ond,op->npd", vec_n, warp.reshape(O, H * W))
+    out = out.reshape(N, H, W, -1)
+    if pooling == "avg":
+        counts = onehot.sum(0).clamp_min(1.0)
+        out = out / counts[:, None, None, None]
+    elif pooling != "sum":
+        raise ValueError(f'Invalid pooling "{pooling}"')
+    return out

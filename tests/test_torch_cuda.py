@@ -9,9 +9,12 @@ need not be installed:
 
 The comparisons are those of ``chip_smoke.py`` phases 3 to 5 (layout
 compose: 1e-5 abs; conv: s8 within 1 ulp, bf16 within 1e-4 of max |out|;
-relayout: bit-equal).
+relayout: bit-equal), and of its serving phase (the server's launches per
+engine call; the on-device deprocess bit-equal to the host's; noise on the
+card used where it lies).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -214,3 +217,71 @@ def test_packed_generator_launches_the_relayout_kernel(card):
     assert (rl.space_to_depth.launches - before[0],
             rl.depth_to_space.launches - before[1]) == (2, 2)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_server_b128_reply_launches_k1_once_per_engine_call(card, tmp_path):
+    """The port's server at vg128 full width in bf16/split: a batch-128
+    request is one engine call and one launch of the layout kernel."""
+    ckpt = str(tmp_path / "vg128.pt")
+    vocab = chip_smoke.write_vg128_checkpoint(torch, ckpt)
+    graphs = chip_smoke.random_graphs(vocab, 128, np.random.RandomState(0))
+    with chip_smoke.SmokeServer(
+            ["--checkpoint", ckpt, "--device", "cuda", "--bf16", "1",
+             "--crn_mode", "split", "--warmup", "1",
+             "--max_graphs", "128"]) as server:
+        calls0 = server.state.batcher.engine_calls
+        before = lk.layout_compose.launches
+        reply = server.post({"scene_graphs": graphs, "seed": 1,
+                             "return": "npy"})
+        calls = server.state.batcher.engine_calls - calls0
+        assert chip_smoke.reply_images(reply).shape == (128, 128, 128, 3)
+        assert calls == 1
+        assert lk.layout_compose.launches - before == calls
+
+
+def test_deprocess_on_device_equals_host_path(card):
+    from sg2im_tpu_torch.data import (imagenet_deprocess_batch,
+                                      imagenet_deprocess_batch_torch)
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    imgs = torch.randn((8, 3, 128, 128), generator=gen, device=card)
+    nhwc = imgs.contiguous(memory_format=torch.channels_last).permute(
+        0, 2, 3, 1)
+    got = imagenet_deprocess_batch_torch(nhwc)
+    assert got.is_cuda and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  imagenet_deprocess_batch(nhwc.cpu().numpy()))
+
+
+def test_device_noise_makes_no_host_copy(card):
+    """Explicit noise already on the card is used in place (rows padded on
+    the card): no copy between host and card, and the images equal those
+    of the same noise handed over as a numpy array."""
+    from torch.autograd import DeviceType
+
+    from sg2im_tpu_torch.inference import InferenceEngine
+    from sg2im_tpu_torch.models import Sg2ImGenerator
+
+    vocab, kwargs = chip_smoke.vg128_config()
+    kwargs = dict(kwargs, image_size=(64, 64), refinement_dims=(64, 32, 16, 8))
+    model = Sg2ImGenerator(vocab, **kwargs)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    engine = InferenceEngine(vocab, kwargs, model.state_dict(), device=card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    noise = torch.randn((4, 64, 64, 32), generator=gen, device=card)
+    assert engine._noise(noise, 0, 4).data_ptr() == noise.data_ptr()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA], acc_events=True) as prof:
+        padded = engine._noise(noise[:3], 0, 4)
+        torch.cuda.synchronize()
+    events = prof.events()
+    assert any(e.device_type == DeviceType.CUDA for e in events)
+    assert not [e.name for e in events if "Memcpy" in e.name
+                and ("HtoD" in e.name or "DtoH" in e.name)]
+    assert torch.equal(padded[:3], noise[:3].permute(0, 3, 1, 2))
+    assert not padded[3].any()
+    graphs = chip_smoke.random_graphs(vocab, 3, np.random.RandomState(2))
+    a, _ = engine.generate(graphs, noise=noise[:3])
+    b, _ = engine.generate(graphs, noise=noise[:3].cpu().numpy())
+    np.testing.assert_array_equal(a, b)

@@ -219,3 +219,253 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "imported" in proc.stdout
+
+
+def test_deprocess_on_device_matches_host_and_jax(port_engine, scene_graphs):
+    """The engine deprocesses on its device: bit-equal to the host
+    deprocess of the same float images, and within 1 u8 level of the JAX
+    engine's on-device deprocess (the two engines' float images differ by
+    f32 round-off)."""
+    from sg2im_tpu.inference import InferenceEngine as JaxEngine
+    from sg2im_tpu_torch.data import imagenet_deprocess_batch
+
+    got, out = port_engine.generate(scene_graphs, noise="zeros")
+    assert got.dtype == np.uint8 and got.shape == (8, 64, 64, 3)
+    f32, _ = port_engine.generate(scene_graphs, noise="zeros",
+                                  deprocess=False)
+    assert f32.dtype == np.float32
+    np.testing.assert_array_equal(
+        f32, out["imgs"].permute(0, 2, 3, 1).numpy())
+    np.testing.assert_array_equal(got, imagenet_deprocess_batch(f32))
+    jax_engine = JaxEngine.from_torch_checkpoint(CKPT,
+                                                 deprocess_on_device=True)
+    jgot, _ = jax_engine.generate(scene_graphs, noise="zeros")
+    assert np.abs(got.astype(int) - jgot).max() <= 1
+
+
+@pytest.mark.parametrize("shape", [(3, 8, 8, 3), (1, 5, 7, 3), (2, 64, 64, 3)])
+def test_deprocess_torch_is_bit_equal_to_host(shape):
+    from sg2im_tpu.data.transforms import imagenet_deprocess_batch_jnp
+    from sg2im_tpu_torch.data import (imagenet_deprocess_batch,
+                                      imagenet_deprocess_batch_torch)
+
+    imgs = np.random.RandomState(sum(shape)).randn(*shape).astype(np.float32)
+    want = imagenet_deprocess_batch(imgs)
+    got = imagenet_deprocess_batch_torch(torch.from_numpy(imgs))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    # An NCHW tensor goes in as its NHWC view.
+    nchw = torch.from_numpy(imgs).permute(0, 3, 1, 2).contiguous()
+    np.testing.assert_array_equal(
+        imagenet_deprocess_batch_torch(nchw.permute(0, 2, 3, 1)).numpy(),
+        want)
+    jgot = np.asarray(imagenet_deprocess_batch_jnp(imgs))
+    assert np.abs(got.numpy().astype(int) - jgot).max() <= 1
+
+
+def test_noise_downsample(scene_graphs):
+    """f = 2: zero noise gives the f = 1 images; seeded noise is the
+    (D, H/2, W/2) draw, constant over 2x2 tiles."""
+    from sg2im_tpu_torch.inference import InferenceEngine, seeded_noise
+
+    one = InferenceEngine.from_torch_checkpoint(CKPT, device="cpu")
+    two = InferenceEngine.from_torch_checkpoint(CKPT, device="cpu",
+                                                noise_downsample=2)
+    a, out_a = one.generate(scene_graphs, noise="zeros")
+    b, out_b = two.generate(scene_graphs, noise="zeros")
+    np.testing.assert_array_equal(a, b)
+    assert torch.equal(out_a["imgs"], out_b["imgs"])
+    noise = two.draw_noise(3, seed=4)
+    assert noise.shape == (3, 32, 64, 64)
+    coarse = seeded_noise(3, (32, 32, 32), seed=4, device="cpu")
+    for dy in (0, 1):
+        for dx in (0, 1):
+            assert torch.equal(noise[:, :, dy::2, dx::2], coarse)
+    assert two.draw_noise(1, seed=4).equal(noise[:1])  # row-stable
+    c, _ = two.generate(scene_graphs[:2], seed=4)
+    d, _ = one.generate(scene_graphs[:2], seed=4)
+    assert not np.array_equal(c, d)
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(noise_downsample=3), "noise_downsample must be"),
+    (dict(noise_downsample=0), "noise_downsample must be"),
+])
+def test_engine_refuses_knobs_it_cannot_keep(kw, match):
+    from sg2im_tpu_torch.inference import InferenceEngine
+
+    with pytest.raises(ValueError, match=match):
+        InferenceEngine.from_torch_checkpoint(CKPT, device="cpu", **kw)
+
+
+def test_noise_downsample_must_divide_the_image():
+    from sg2im_tpu_torch.ckpt import load_reference_checkpoint
+    from sg2im_tpu_torch.inference import InferenceEngine
+
+    vocab, kwargs, state = load_reference_checkpoint(CKPT)
+    kwargs = dict(kwargs, image_size=(62, 62))
+    with pytest.raises(ValueError, match="does not divide"):
+        InferenceEngine(vocab, kwargs, state, device="cpu",
+                        noise_downsample=4)
+
+
+def test_warmup_bucket_shapes_match_jax(port_engine, jax_engine):
+    sizes = (1, 3)
+    assert port_engine.warmup(batch_sizes=sizes) == \
+        jax_engine.warmup(batch_sizes=sizes)
+    sg = {"objects": ["thing1"] * 9, "relationships": [[0, "above", 1]]}
+    assert port_engine.warmup(batch_sizes=(5,), scene_graph=sg) == \
+        [(8, 16, 16)]
+
+
+def test_warmup_keeps_only_prior_int8_scales(scene_graphs):
+    """int8: warmup scales are discarded on an uncalibrated engine; a
+    calibrated engine keeps its scales through warmup."""
+    from sg2im_tpu_torch.inference import InferenceEngine
+
+    engine = InferenceEngine.from_torch_checkpoint(CKPT, device="cpu",
+                                                   quantize="int8")
+    assert engine.warmup(batch_sizes=(1, 2)) == [(1, 8, 8), (2, 8, 8)]
+    assert not engine.calibrated
+    engine.calibrate(scene_graphs, noise="zeros")
+    scales = engine.scales()
+    engine.warmup(batch_sizes=(1, 2))
+    assert engine.scales() == scales
+
+
+def test_explicit_noise_tensor_stays_where_it_lies(port_engine,
+                                                   scene_graphs):
+    """A (n, H, W, D) tensor on the engine's device is used in place
+    (padded rows added on the device) and gives the images of the same
+    noise as a numpy array."""
+    noise = torch.from_numpy(
+        np.random.RandomState(5).randn(4, 64, 64, 32).astype(np.float32))
+    used = port_engine._noise(noise, 0, 4)
+    assert used.data_ptr() == noise.data_ptr()
+    padded = port_engine._noise(noise[:3], 0, 4)
+    assert torch.equal(padded[:3], noise[:3].permute(0, 3, 1, 2))
+    assert not padded[3].any()
+    a, _ = port_engine.generate(scene_graphs[:3], noise=noise[:3])
+    b, _ = port_engine.generate(scene_graphs[:3], noise=noise[:3].numpy())
+    np.testing.assert_array_equal(a, b)
+
+
+def test_from_bundle_reads_the_checkpoint_once(port_engine, scene_graphs):
+    from sg2im_tpu_torch.ckpt import load_reference_checkpoint
+    from sg2im_tpu_torch.inference import InferenceEngine
+
+    bundle = load_reference_checkpoint(CKPT)
+    a, b = (InferenceEngine.from_bundle(bundle, device="cpu")
+            for _ in range(2))
+    want, _ = port_engine.generate(scene_graphs, noise="zeros")
+    for e in (a, b):
+        np.testing.assert_array_equal(
+            e.generate(scene_graphs, noise="zeros")[0], want)
+
+
+def test_engine_runs_on_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from sg2im_tpu_torch.inference import InferenceEngine
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceEngine.from_torch_checkpoint(CKPT)
+
+
+def _verify(tmp_path, *extra):
+    from sg2im_tpu_torch.cli.verify_pretrained import main
+
+    return main(["--checkpoint", CKPT, "--scene_graphs_json", GRAPHS,
+                 "--output_dir", str(tmp_path / "out"), "--device", "cpu",
+                 *extra])
+
+
+@pytest.fixture(scope="module")
+def jax_goldens(tmp_path_factory, jax_engine, scene_graphs):
+    """Golden PNGs written by the JAX engine with zero noise."""
+    from PIL import Image
+
+    golden = tmp_path_factory.mktemp("goldens")
+    imgs, _ = jax_engine.generate(scene_graphs, noise="zeros")
+    for i, img in enumerate(imgs):
+        Image.fromarray(img).save(golden / f"img{i:06d}.png")
+    return golden
+
+
+def test_verify_pretrained_passes_against_jax_goldens(tmp_path, capsys,
+                                                      jax_goldens):
+    assert _verify(tmp_path, "--golden_dir", str(jax_goldens)) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    last = json.loads(lines[-1])
+    assert last["pass"] is True
+    assert set(last["psnr"]) == {"golden_u8:trained_scene_graphs.json",
+                                 "golden_u8:ALL"}
+    assert min(last["psnr"].values()) >= 40.0
+    assert lines[0].startswith("Wrote 8 images")
+    assert len(os.listdir(tmp_path / "out")) == 8
+
+
+@pytest.mark.parametrize("case, rc", [("missing golden", 1),
+                                      ("no golden dir", 1),
+                                      ("below --min_psnr", 2),
+                                      ("missing checkpoint", 1)])
+def test_verify_pretrained_exit_codes(tmp_path, capsys, jax_goldens, case,
+                                      rc):
+    from sg2im_tpu_torch.cli.verify_pretrained import main
+
+    if case == "missing golden":
+        partial = tmp_path / "partial"
+        partial.mkdir()
+        for i in range(4):
+            name = f"img{i:06d}.png"
+            (partial / name).write_bytes((jax_goldens / name).read_bytes())
+        assert _verify(tmp_path, "--golden_dir", str(partial)) == rc
+        assert "missing golden image" in capsys.readouterr().out
+    elif case == "no golden dir":
+        assert _verify(tmp_path) == rc
+        assert "nothing to compare against" in capsys.readouterr().out
+    elif case == "below --min_psnr":
+        assert _verify(tmp_path, "--golden_dir", str(jax_goldens),
+                       "--min_psnr", "1000", "--conv_precision",
+                       "highest") == rc
+        out = capsys.readouterr().out
+        assert "[LOW]" in out and json.loads(
+            out.strip().splitlines()[-1])["pass"] is False
+    else:
+        assert main(["--checkpoint", str(tmp_path / "nope.pt")]) == rc
+
+
+def test_full_fp32_holds_across_threads():
+    """Engines in several threads (server replicas): TF32 stays off inside
+    every open block, and the switches come back once the last ends."""
+    import threading
+
+    from sg2im_tpu_torch.inference import full_fp32
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    seen_on = []
+
+    def worker():
+        for _ in range(200):
+            with full_fp32():
+                if (torch.backends.cuda.matmul.allow_tf32
+                        or torch.backends.cudnn.allow_tf32):
+                    seen_on.append(1)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert not seen_on
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        sys.setswitchinterval(interval)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags

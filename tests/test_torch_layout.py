@@ -187,3 +187,52 @@ def test_wrappers_are_forward_only_and_check_inputs():
         tk.layout_compose(tb, tm[:, :, :, :-1], tv, H, W)
     with pytest.raises(ValueError, match="backend"):
         tlayout.masks_to_layout(tv, tb, tm, None, H, W, backend="pallas")
+
+
+FLAT_ATOL = 2e-5  # the JAX suite's bar for exact reformulations
+
+
+def _flat_inputs(O, D, M, n_imgs, seed):
+    vecs, boxes, masks, _ = _inputs(1, O, 8, 8, M, D, False, seed)
+    obj_to_img = np.sort(np.random.RandomState(seed).randint(0, n_imgs, O))
+    return vecs[0], boxes[0], masks[0], obj_to_img.astype(np.int64)
+
+
+@pytest.mark.parametrize("pooling", ["sum", "avg"])
+@pytest.mark.parametrize("H, W, num_imgs", [(16, 16, None), (24, 40, 5)])
+def test_flat_layout_apis_match_jax(H, W, num_imgs, pooling):
+    """boxes_to_layout_flat / masks_to_layout_flat against the JAX
+    package's on seeded inputs; num_imgs 5 leaves images without objects."""
+    vecs, boxes, masks, obj_to_img = _flat_inputs(7, 6, 8, 3, seed=H)
+    jargs = (jnp.asarray(vecs), jnp.asarray(boxes))
+    targs = _t(vecs, boxes)
+    want = np.asarray(jlayout.boxes_to_layout_flat(
+        *jargs, jnp.asarray(obj_to_img), H, W, pooling=pooling,
+        num_imgs=num_imgs))
+    got = tlayout.boxes_to_layout_flat(
+        *targs, torch.from_numpy(obj_to_img), H, W, pooling=pooling,
+        num_imgs=num_imgs)
+    assert got.shape == want.shape == ((num_imgs or 3), H, W, 6)
+    np.testing.assert_allclose(got.numpy(), want, atol=FLAT_ATOL)
+    want = np.asarray(jlayout.masks_to_layout_flat(
+        *jargs, jnp.asarray(masks), jnp.asarray(obj_to_img), H, W,
+        pooling=pooling, num_imgs=num_imgs))
+    got = tlayout.masks_to_layout_flat(
+        *targs, torch.from_numpy(masks), torch.from_numpy(obj_to_img), H, W,
+        pooling=pooling, num_imgs=num_imgs)
+    np.testing.assert_allclose(got.numpy(), want, atol=FLAT_ATOL)
+
+
+def test_flat_layout_matches_padded_layout():
+    """One image's objects through the flat API equal the padded API."""
+    vecs, boxes, masks, _ = _flat_inputs(5, 4, 8, 1, seed=3)
+    obj_to_img = torch.zeros(5, dtype=torch.long)
+    flat = tlayout.masks_to_layout_flat(*_t(vecs, boxes, masks), obj_to_img,
+                                        16, 20)
+    padded = tlayout.masks_to_layout(*_t(vecs[None], boxes[None],
+                                         masks[None]), None, 16, 20,
+                                     backend="torch")
+    np.testing.assert_allclose(flat.numpy(), padded.numpy(), atol=FLAT_ATOL)
+    with pytest.raises(ValueError, match="pooling"):
+        tlayout.boxes_to_layout_flat(*_t(vecs, boxes), obj_to_img, 8,
+                                     pooling="max")
