@@ -48,12 +48,26 @@ with a non-zero exit code:
    1-graph latency from the server's histogram and host ms per request;
    the on-device deprocess against the host's, noise_downsample=2 on zero
    noise against full resolution, and verify_pretrained --device cuda on
-   the learned checkpoint against the CPU engine's images.
+   the learned checkpoint against the CPU engine's images;
+9. training: the port's Trainer at the COCO-64 flagship (bench.py's
+   train_step_setup, b32) in f32 / 'legacy', bf16 / 'split' and f32 /
+   'packed': step 1 on the card against the CPU's from the same state,
+   batch (its first TRAIN_CPU_BATCH images) and noise, losses within
+   TRAIN_LOSS_BAR; K1's forward at the training shape (f32 and bf16 out)
+   against the plain compose, its Function gradients and K3's backward
+   against autograd of their plain versions; K1 launched once per G
+   forward in every mode, both K3 entries in the G forward and in the G
+   backward of a 'packed' step (counts read at the step's phase marks);
+   a batch with one NaN image leaves every tensor of the
+   state bit-identical; an async save loaded into a fresh Trainer takes
+   the uninterrupted run's next step (cuDNN deterministic); median ms per
+   step, img/s and peak memory of f32 and bf16 / 'split'; K1's forward
+   and plain-backward time per step.
 
 Each path (the turbo CLI, the vg128 requests of f32 and bf16/split, the
 turbo requests, the requests of each further CRN mode, the HTTP traffic of
-each server) runs with the kernels' launch counts set to 0 just before it
-and read just after; the
+each server, the train steps of each mode) runs with the kernels' launch
+counts set to 0 just before it and read just after; the
 conv wrappers' padded input copies, counted the same way, must stay 0 on
 every path and in every timed batch-128 forward.
 The line before the last is a JSON summary of every ported kernel with
@@ -1462,6 +1476,292 @@ def phase_serve(torch, card, launches):
             fail(f"verify_pretrained exited {rc}")
 
 
+# The COCO-64 flagship the repo trains (TrainConfig's defaults at
+# bench.py:155-184, sg2im_tpu_torch/tools/profile_train.py::coco64): the
+# train phase's configurations on the card.
+TRAIN_MODES = {"f32/legacy": {},
+               "bf16/split": dict(bf16_compute=True, crn_mode="split"),
+               "f32/packed": dict(crn_mode="packed")}
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+TRAIN_CPU_BATCH = 4      # card-vs-CPU step at this batch, full widths
+TRAIN_LOSS_BAR = 2e-4    # relative, step-1 losses card vs CPU in f32
+
+
+def state_tensors(state):
+    """Every tensor of a train state but the step and the noise-generator
+    state, cloned."""
+    from sg2im_tpu_torch.train.state import tensors
+
+    return {k: v.clone() for k, v in tensors(state).items()
+            if k not in ("step", "noise_rng")}
+
+
+def timed_steps(torch, trainer, state, batch, warmup, timed):
+    """warmup + timed steps, each between two events on the stream (no
+    sync between steps) -> (state, median ms per timed step, peak device
+    bytes, every step's metrics)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, metrics = [], []
+    for _ in range(warmup + timed):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = trainer.step(state, batch)
+        b.record()
+        events.append((a, b))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in events[warmup:])
+    return (state, float(np.median(ms)), torch.cuda.max_memory_allocated(),
+            metrics)
+
+
+def check_steps_finite(name, metrics):
+    skipped = sum(int(m["skipped_nonfinite"]) for m in metrics)
+    totals = [float(m["total_loss"]) for m in metrics]
+    if skipped or not np.isfinite(totals).all():
+        fail(f"train {name}: {skipped} skipped steps, totals {totals}")
+
+
+def check_train_gradients(torch, batch):
+    """K1 at the training shape through its Function, with f32 and bf16
+    output (the f32 and the bf16/split steps): the forward against the
+    plain compose (KERNEL_BAR abs in f32, one rounding in bf16), and the
+    gradients against autograd of the plain compose (1e-5 of max |grad|).
+    The backward is the plain recompute on both sides, so the gradients
+    check the Function's wiring (saved inputs, casts, which inputs get a
+    gradient), not a kernel.  Then K3's backward bit-equal to autograd of
+    the plain relayout at the packed CRN's b32 shapes, with a
+    non-channels_last incoming gradient (the copy the wrapper counts)."""
+    from sg2im_tpu_torch.ops import layout_kernel as lk
+    from sg2im_tpu_torch.ops import relayout as rl
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    boxes, masks = batch["boxes"], batch["masks"]
+    N, O = boxes.shape[:2]
+    vecs = torch.randn((N, O, 128), device="cuda", generator=g)
+    vecs = vecs * batch["obj_mask"][..., None]
+    gout = torch.randn((N, 64, 64, 128), device="cuda", generator=g)
+    for dt in (torch.float32, torch.bfloat16):
+        grads = {}
+        for name, fn in (
+                ("kernel", lambda *a: lk.layout_compose(*a, 64, 64,
+                                                        out_dtype=dt)),
+                ("plain", lambda *a: lk.layout_compose_ref(
+                    *a, 64, 64).to(dt))):
+            leaves = [t.clone().requires_grad_()
+                      for t in (boxes, masks, vecs)]
+            out = fn(*leaves)
+            grads[name] = torch.autograd.grad(out, leaves, gout.to(dt))
+            if name == "kernel":
+                got = out.detach().float()
+        # Against the plain compose in f32: bf16 output within one rounding.
+        want = lk.layout_compose_ref(boxes, masks, vecs, 64, 64)
+        diff = (got - want).abs()
+        fwd_err = diff.max().item()
+        ok = (fwd_err <= KERNEL_BAR if dt == torch.float32 else
+              bool((diff <= want.abs() * 2.0 ** -8 + KERNEL_BAR).all()))
+        tag = "f32" if dt == torch.float32 else "bf16"
+        line = [f"[train] K1 at b{N} O{O} M16 64x64 D128, {tag} out: forward"
+                f" vs the plain compose {fwd_err:.3e} (max |out| "
+                f"{want.abs().max().item():.2f}); Function gradients vs "
+                f"autograd of the plain compose:"]
+        if not ok:
+            fail(f"K1's {tag} forward at the training shape disagrees with "
+                 f"the plain compose: {fwd_err:.3e}")
+        for i, what in enumerate(("boxes", "masks", "vecs")):
+            a, b = grads["kernel"][i], grads["plain"][i]
+            err = (a - b).abs().max().item()
+            peak = b.abs().max().item()
+            line.append(f"{what} {err:.3e} of max {peak:.3e};")
+            if not err <= 1e-5 * max(peak, 1.0):
+                fail(f"K1 {what} gradient ({tag} out) off by {err:.3e} "
+                     f"(max {peak:.3e})")
+        print(" ".join(line))
+    cases = {"s2d layout 64x64 C160": (rl.space_to_depth,
+                                       rl.space_to_depth_ref,
+                                       (N, 160, 64, 64)),
+             "s2d layout 32x32 C160": (rl.space_to_depth,
+                                       rl.space_to_depth_ref,
+                                       (N, 160, 32, 32)),
+             "d2s stage 16x16 4x128": (rl.depth_to_space,
+                                       rl.depth_to_space_ref,
+                                       (N, 512, 16, 16)),
+             "d2s stage 32x32 4x64": (rl.depth_to_space,
+                                      rl.depth_to_space_ref,
+                                      (N, 256, 32, 32))}
+    out = []
+    for name, (wrapper, plain, shape) in cases.items():
+        x = torch.randn(shape, device="cuda", generator=g).contiguous(
+            memory_format=torch.channels_last)
+        gy = torch.randn(plain(x).shape, device="cuda", generator=g)
+        a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+        (ga,) = torch.autograd.grad(wrapper(a), a, gy)
+        (gb,) = torch.autograd.grad(plain(b), b, gy)
+        if not torch.equal(ga, gb):
+            fail(f"K3 backward of {name} is not bit-equal to the plain "
+                 f"version's")
+        out.append(name)
+    print(f"[train] K3 backward bit-equal to autograd of the plain relayout "
+          f"on {', '.join(out)} (incoming gradients NCHW-contiguous)")
+
+
+def phase_train(torch, card, launches):
+    """The port's Trainer at the COCO-64 flagship on the card; see the
+    module docstring."""
+    from sg2im_tpu_torch.inference import full_fp32
+    from sg2im_tpu_torch.ops import layout_kernel as lk
+    from sg2im_tpu_torch.ops import relayout as rl
+    from sg2im_tpu_torch.tools.profile_train import coco64
+    from sg2im_tpu_torch.train.state import from_tensors, tensors
+    from sg2im_tpu_torch.train.trainer import Trainer
+
+    # cuDNN's deterministic algorithms: the resume check compares a step
+    # from a restored state with the uninterrupted one.
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    vocab, cfg, batch_np = coco64()
+    tr = Trainer(cfg, vocab, device="cuda")
+    batch = tr.to_device(batch_np)
+    N = batch["imgs"].shape[0]
+    state = tr.init_state(seed=0)
+
+    # The card's step 1 against the CPU's, at TRAIN_CPU_BATCH, full widths.
+    n = TRAIN_CPU_BATCH
+    small = {k: v[:n] for k, v in batch_np.items()}
+    noise = torch.randn((n, cfg.layout_noise_dim, 64, 64),
+                        generator=torch.Generator().manual_seed(1))
+    cpu_tr = Trainer(cfg, vocab, device="cpu")
+    cpu_state = from_tensors({k: v if k == "noise_rng" else v.cpu()
+                              for k, v in tensors(state).items()})
+    t0 = time.perf_counter()
+    _, want = cpu_tr.step(cpu_state, small, noise=noise)
+    cpu_s = time.perf_counter() - t0
+    reset_launches()
+    _, got = tr.step(state, small, noise=noise.cuda())
+    if lk.layout_compose.launches != 1:
+        fail(f"the b{n} step launched K1 {lk.layout_compose.launches} times")
+    rel = {k: abs(float(got[k]) - float(want[k]))
+           / max(abs(float(want[k])), 1e-6) for k in want}
+    worst = max(rel, key=rel.get)
+    print(f"[train] COCO-64 f32 step 1 at b{n} (full widths), card vs CPU "
+          f"({cpu_s:.1f} s on the host): {len(rel)} losses, worst relative "
+          f"difference {rel[worst]:.3e} ({worst}); total "
+          f"{float(got['total_loss']):.6f} vs {float(want['total_loss']):.6f}"
+          f"; on {card}")
+    if rel[worst] > TRAIN_LOSS_BAR:
+        fail(f"card step 1 {worst} differs from the CPU's by {rel[worst]:.3e}")
+    del cpu_tr, cpu_state
+
+    with full_fp32():
+        check_train_gradients(torch, batch)
+
+    numbers = {}
+    for name, extra in TRAIN_MODES.items():
+        _, mcfg, _ = coco64(**extra)
+        mtr = tr if not extra else Trainer(mcfg, vocab, device="cuda")
+        mstate = state if not extra else mtr.init_state(seed=0)
+        packed = name == "f32/packed"
+        marks = []
+        if packed:
+            # The launch counts at each phase mark of the step.
+            mtr.train_step.marker = lambda phase: marks.append(
+                (phase, read_launches()))
+        reset_launches()
+        rl.space_to_depth.grad_copies = rl.depth_to_space.grad_copies = 0
+        warmup, timed = ((1, 1) if packed else (TRAIN_WARMUP, TRAIN_TIMED))
+        mstate, ms, peak, metrics = timed_steps(torch, mtr, mstate, batch,
+                                                warmup, timed)
+        mtr.train_step.marker = None
+        path = read_launches()
+        add_launches(launches, path)
+        check_steps_finite(name, metrics)
+        steps = warmup + timed
+        if path["layout_compose_boxes"] != steps:
+            fail(f"train {name}: K1 launched {path['layout_compose_boxes']} "
+                 f"times in {steps} steps")
+        line = (f"[train] {name} b{N}: {steps} steps, K1 launches "
+                f"{path['layout_compose_boxes']} (one per G forward)")
+        if packed:
+            # The last step: its G forward runs from the previous step's
+            # last mark to its g_forward mark, its G backward from there to
+            # g_backward.
+            at = {phase: n for phase, n in marks[-(len(marks) // steps):]}
+            prev = marks[-(len(marks) // steps) - 1][1]
+            keys = ("relayout_s2d", "relayout_d2s")
+            fwd = {k: at["g_forward"][k] - prev[k] for k in keys}
+            bwd = {k: at["g_backward"][k] - at["g_forward"][k] for k in keys}
+            line += (f"; K3 in the last step's G forward: s2d "
+                     f"{fwd['relayout_s2d']} d2s {fwd['relayout_d2s']}, G "
+                     f"backward: s2d {bwd['relayout_s2d']} d2s "
+                     f"{bwd['relayout_d2s']} (read at the step's phase "
+                     f"marks); incoming gradients copied to channels_last: "
+                     f"s2d {rl.space_to_depth.grad_copies} d2s "
+                     f"{rl.depth_to_space.grad_copies} in {steps} steps")
+            if min(*fwd.values(), *bwd.values()) <= 0:
+                fail(f"packed training did not launch both K3 entries "
+                     f"forward and backward: {line}")
+        else:
+            numbers[name] = (ms, N * 1e3 / ms, peak)
+            line += (f"; median {ms:.3f} ms/step over {timed} steps after "
+                     f"{warmup} warm-up ({N * 1e3 / ms:.1f} img/s), peak "
+                     f"device memory {peak / 2**30:.2f} GiB")
+        print(line + f"; on {card}")
+        if name == "f32/legacy":
+            state = mstate
+        del mtr, mstate
+
+    # The NaN guard: one NaN image leaves the whole state bit-identical.
+    before = state_tensors(state)
+    bad = dict(batch, imgs=batch["imgs"].clone())
+    bad["imgs"][0, 0, 0, 0] = float("nan")
+    state2, m = tr.step(state, bad)
+    same = all(torch.equal(v, before[k])
+               for k, v in state_tensors(state2).items())
+    state3, m3 = tr.step(state2, batch)
+    print(f"[train] NaN guard: a batch with one NaN image skipped "
+          f"({bool(m['skipped_nonfinite'])}), {len(before)} tensors of G, "
+          f"D_obj, D_img and their Adams bit-identical: {same}; next step "
+          f"total {float(m3['total_loss']):.6f}, skipped "
+          f"{bool(m3['skipped_nonfinite'])}; on {card}")
+    if not (bool(m["skipped_nonfinite"]) and same
+            and not bool(m3["skipped_nonfinite"])
+            and np.isfinite(float(m3["total_loss"]))):
+        fail("the NaN guard did not hold on the card")
+
+    # Save and resume (async writer), cuDNN deterministic.
+    with tempfile.TemporaryDirectory() as tmp:
+        tr.save_checkpoint(state3, os.path.join(tmp, "ckpt"), wait=False)
+        _, m_cont = tr.step(state3, batch)
+        tr2 = Trainer(cfg, vocab, device="cuda")
+        restored, _ = tr2.load_checkpoint(os.path.join(tmp, "ckpt"))
+        _, m_res = tr2.step(restored, batch)
+    diff = max(abs(float(m_cont[k]) - float(m_res[k])) for k in m_cont)
+    print(f"[train] resume: saved after {int(state3.step)} steps (async), "
+          f"loaded into a fresh Trainer: the next step's {len(m_cont)} losses"
+          f" differ from the uninterrupted run's by at most {diff:.3e} "
+          f"(cudnn.deterministic); on {card}")
+    if diff != 0.0:
+        fail(f"resumed step differs from the uninterrupted one by {diff}")
+
+    # K1's device time and its plain backward's, per step.
+    vecs = torch.randn((N, 16, 128), device="cuda") * batch["obj_mask"][
+        ..., None]
+    gout = torch.randn((N, 64, 64, 128), device="cuda")
+    k1 = _time_ms(torch, lambda: lk.layout_compose(
+        batch["boxes"], batch["masks"], vecs, 64, 64))
+    k1_bwd = _time_ms(torch, lambda: lk._plain_vjp(
+        lambda b, mm, v: lk.layout_compose_ref(b, mm, v, 64, 64),
+        (batch["boxes"], batch["masks"], vecs), (False, False, True), gout))
+    ms32 = numbers["f32/legacy"][0]
+    print(f"[train] per step at b{N}: K1 forward {k1:.4f} ms, its plain "
+          f"backward (recompute + vjp for vecs) {k1_bwd:.4f} ms, together "
+          f"{100 * (k1 + k1_bwd) / ms32:.2f}% of the f32 step; on {card}")
+    torch.backends.cudnn.deterministic = False
+    return numbers
+
+
 def main() -> int:
     import torch
 
@@ -1471,13 +1771,14 @@ def main() -> int:
         return 1
     card = phase_environment(torch)
     phase_build()
+    launches = {}
     errs, times = phase_kernels(torch, card)
     conv_errs, conv_times = phase_conv(torch, card)
     rl_errs, rl_times = phase_relayout(torch, card)
-    launches = {}
     phase_checkpoint(torch, launches)
     phase_vg128(torch, card, launches)
     phase_serve(torch, card, launches)
+    phase_train(torch, card, launches)
     layout_src = "sg2im_tpu/ops/pallas/layout_kernel.py"
     conv_replaces = "scripts/proto_pallas_conv.py:122"
     relayout_src = "sg2im_tpu/ops/pallas/relayout_kernel.py"

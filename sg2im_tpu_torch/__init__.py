@@ -8,8 +8,9 @@ TPU are CUDA kernels written for sm_90a, built with nvcc at first use: the
 layout compose (``csrc/layout_compose.cu``), the 3x3 conv
 (``csrc/conv3x3.cu``), whose int8 entry carries the int8 turbo serving
 tier, and the space-to-depth / depth-to-space relayout of the CRN's
-'packed' and 'phase' modes (``csrc/relayout.cu``).  The package imports
-neither JAX nor the JAX package.
+'packed' and 'phase' modes (``csrc/relayout.cu``).  ``train/`` is the
+GAN training step and its Trainer, with gradients through those kernels.
+The package imports neither JAX nor the JAX package.
 """
 
 __version__ = "0.1.0"

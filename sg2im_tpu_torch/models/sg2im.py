@@ -25,7 +25,12 @@ from sg2im_tpu_torch.nn.graph import (
     GraphTripleConvNet,
     gather_slots,
 )
-from sg2im_tpu_torch.nn.layers import MLP, BatchNorm, init_weights
+from sg2im_tpu_torch.nn.layers import (
+    MLP,
+    BatchNorm,
+    init_weights,
+    run_masked,
+)
 from sg2im_tpu_torch.ops.layout import boxes_to_layout, masks_to_layout
 
 CRN_MODES = CONV0_MODES + ("split_noise",)
@@ -48,6 +53,11 @@ class MaskNet(nn.Sequential):
             raise ValueError("Mask size must be a power of 2")
         layers.append(nn.Conv2d(dim, 1, 1))
         super().__init__(*layers)
+
+    def forward(self, x, sample_mask=None):
+        """``sample_mask`` (B,): which rows count in the train-mode
+        BatchNorm statistics (padded object slots do not)."""
+        return run_masked(self, x, sample_mask)
 
 
 class Sg2ImGenerator(nn.Module):
@@ -126,13 +136,21 @@ class Sg2ImGenerator(nn.Module):
         init_weights(self, generator)
 
     def forward(self, objs, triples, obj_mask=None, triple_mask=None,
-                layout_noise=None):
+                layout_noise=None, boxes_gt=None, masks_gt=None):
         """
         Args:
           objs (N, O), triples (N, T, 3): integer tensors.
           obj_mask (N, O), triple_mask (N, T): validity or None (all real).
           layout_noise: (N, layout_noise_dim, H, W) when layout_noise_dim
-            > 0.  The generator draws no noise itself: the engine does.
+            > 0.  The generator draws no noise itself: the engine and the
+            trainer do.
+          boxes_gt (N, O, 4), masks_gt (N, O, M, M): ground truth the
+            layout is composed from instead of the predictions, as training
+            does (upstream ``train.py:524-528``).
+
+        In train mode the BatchNorms of the MLPs and of the mask head take
+        batch statistics over the real rows only: ``obj_mask`` for the
+        object rows, ``triple_mask`` for the triple rows.
 
         Returns:
           imgs (N, 3, H, W) float32, boxes (N, O, 4), masks (N, O, M, M) or
@@ -149,35 +167,40 @@ class Sg2ImGenerator(nn.Module):
             obj_vecs = self.gconv(obj_vecs)
         else:
             obj_vecs, pred_vecs = self.gconv(obj_vecs, pred_vecs, edges,
-                                             triple_mask)
+                                             triple_mask, obj_mask)
         if self.gconv_num_layers > 1:
             obj_vecs, pred_vecs = self.gconv_net(obj_vecs, pred_vecs, edges,
-                                                 triple_mask)
+                                                 triple_mask, obj_mask)
 
-        boxes_pred = self.box_net(obj_vecs)
+        boxes_pred = self.box_net(obj_vecs, mask=obj_mask)
         masks_pred = None
         N, O = objs.shape
         if self.mask_size is not None and self.mask_size > 0:
             mask_in = obj_vecs.reshape(N * O, -1, 1, 1)
-            masks_pred = torch.sigmoid(self.mask_net(mask_in)).reshape(
+            flat_mask = None if obj_mask is None else obj_mask.reshape(N * O)
+            masks_pred = torch.sigmoid(
+                self.mask_net(mask_in, sample_mask=flat_mask)).reshape(
                 N, O, self.mask_size, self.mask_size)
 
         rel_aux_in = torch.cat([gather_slots(boxes_pred, s),
                                 gather_slots(boxes_pred, o),
                                 gather_slots(obj_vecs_orig, s),
                                 gather_slots(obj_vecs_orig, o)], dim=-1)
-        rel_scores = self.rel_aux_net(rel_aux_in)
+        rel_scores = self.rel_aux_net(rel_aux_in, mask=triple_mask)
 
         H, W = self.image_size
         dtype = self.compute_dtype or torch.float32
+        layout_boxes = boxes_pred if boxes_gt is None else boxes_gt
         if masks_pred is None:
-            layout = boxes_to_layout(obj_vecs, boxes_pred, obj_mask, H,
+            layout = boxes_to_layout(obj_vecs, layout_boxes, obj_mask, H,
                                      W).to(dtype)
         else:
             # In bf16 mode the compose still sums in f32 and writes bf16:
             # the layout is narrowed before the noise concat.
-            layout = masks_to_layout(obj_vecs, boxes_pred, masks_pred,
-                                     obj_mask, H, W, out_dtype=dtype)
+            layout = masks_to_layout(
+                obj_vecs, layout_boxes,
+                masks_pred if masks_gt is None else masks_gt, obj_mask, H, W,
+                out_dtype=dtype)
         # NHWC storage viewed as NCHW: a channels_last tensor, no copy.
         layout = layout.permute(0, 3, 1, 2)
         noise = None

@@ -1,6 +1,8 @@
 """Cascaded Refinement Network (Chen & Koltun, ICCV 2017), NCHW.
 
-Counterpart of ``sg2im_tpu/nn/crn.py`` in every eval-mode conv0 mode.  Each
+Counterpart of ``sg2im_tpu/nn/crn.py`` in every conv0 mode, in eval and in
+train mode (the BatchNorms' batch statistics; the packed stages fold the four
+phases into each channel's reduction).  Each
 stage nearest-2x upsamples its features, meets the layout average-pooled
 to its resolution, and applies two conv-norm-act blocks; the features start
 as zeros of one channel at H / 2^stages.  Parameters keep the upstream
@@ -32,9 +34,10 @@ kernels (packed, phase) are computed in float32 from the float32
 parameters at each call and cast once.
 
 ``quant='int8'`` is the turbo serving tier (the JAX package's
-``crn_quant``), in the 'legacy' and 'split' modes: the stages whose layout
-resolution lies in [quant_min_res, quant_max_res] run their feats-branch
-and second convolutions as int8 x int8 with exact int32 sums
+``crn_quant``), inference only, in the 'legacy' and 'split' modes: the
+stages whose layout resolution lies in [quant_min_res, quant_max_res] run
+their feats-branch and second convolutions as int8 x int8 with exact int32
+sums
 (``ops/conv_kernel.conv3x3_int8``, the Hopper kernel for CUDA tensors),
 weights quantized per output channel from the f32 parameters at each call,
 activations per tensor at calibrated scales.  The stages are int8-resident:
@@ -557,6 +560,9 @@ class RefinementNetwork(nn.Module):
         own pyramid and kernel slice, so concat(layout, noise) is never
         stored at any resolution."""
         N, _, H, W = layout.shape
+        if self.training and self.quant is not None:
+            raise ValueError("the int8 tier is inference only: call .eval() "
+                             "or build the network without quant")
         if noise is not None:
             if self.conv0_mode != "split":
                 raise ValueError("a separate noise tensor needs CRN mode "

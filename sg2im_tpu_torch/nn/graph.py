@@ -70,20 +70,23 @@ class GraphTripleConv(nn.Module):
                         batch_norm=mlp_normalization,
                         kernel_init="kaiming_normal")
 
-    def forward(self, obj_vecs, pred_vecs, edges, triple_mask=None):
+    def forward(self, obj_vecs, pred_vecs, edges, triple_mask=None,
+                obj_mask=None):
         """obj_vecs (N, O, Din), pred_vecs (N, T, Din), edges (N, T, 2)
-        -> (new obj_vecs (N, O, Dout), new pred_vecs (N, T, Dout))."""
+        -> (new obj_vecs (N, O, Dout), new pred_vecs (N, T, Dout)).
+        ``triple_mask`` and ``obj_mask`` keep padded rows out of net1's and
+        net2's train-mode BatchNorm statistics."""
         H, Dout = self.hidden_dim, self.output_dim
         s_idx, o_idx = edges[..., 0], edges[..., 1]
         cur_t = torch.cat([gather_slots(obj_vecs, s_idx), pred_vecs,
                            gather_slots(obj_vecs, o_idx)], dim=-1)
-        new_t = self.net1(cur_t)
+        new_t = self.net1(cur_t, mask=triple_mask)
         new_s = new_t[..., :H]
         new_p = new_t[..., H:H + Dout]
         new_o = new_t[..., H + Dout:2 * H + Dout]
         pooled = pool_messages(s_idx, o_idx, new_s, new_o, triple_mask,
                                obj_vecs.shape[1], self.pooling)
-        return self.net2(pooled), new_p
+        return self.net2(pooled, mask=obj_mask), new_p
 
 
 class GraphTripleConvNet(nn.Module):
@@ -99,8 +102,9 @@ class GraphTripleConvNet(nn.Module):
                             mlp_normalization=mlp_normalization)
             for _ in range(num_layers))
 
-    def forward(self, obj_vecs, pred_vecs, edges, triple_mask=None):
+    def forward(self, obj_vecs, pred_vecs, edges, triple_mask=None,
+                obj_mask=None):
         for gconv in self.gconvs:
             obj_vecs, pred_vecs = gconv(obj_vecs, pred_vecs, edges,
-                                        triple_mask)
+                                        triple_mask, obj_mask)
         return obj_vecs, pred_vecs

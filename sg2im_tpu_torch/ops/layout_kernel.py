@@ -18,9 +18,15 @@ passes it to the launch.
 For a CUDA tensor each wrapper launches the kernel or raises; for a CPU
 tensor it computes the plain version (``layout_compose_ref``,
 ``layout_compose_weights_ref``), which materialises the (N, O, H, W) warp.
-The kernels are forward only: with grad mode on and an input that requires
-a gradient the wrappers raise.  ``<wrapper>.launches`` counts kernel
-launches and nothing else.
+``<wrapper>.launches`` counts kernel launches and nothing else.
+
+Gradients: each wrapper is a ``torch.autograd.Function`` whose forward is
+the kernel (the plain version on the CPU) and whose backward recomputes the
+plain version from the saved inputs and takes its vector-Jacobian product
+for every input that requires a gradient, on the inputs' device.  That is
+the JAX package's ``custom_vjp`` (``_v2_bwd``, ``_bwd``), which has no
+backward kernel either.  Only the small inputs are saved, never the warp.
+A call that needs no gradient launches the kernel without the Function.
 """
 
 from __future__ import annotations
@@ -140,14 +146,6 @@ def layout_compose_ref(boxes, masks, vecs, H: int, W: int) -> torch.Tensor:
     return layout_compose_weights_ref(wy, wx, masks, vecs)
 
 
-def _check_forward_only(*tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "layout compose is forward only: its backward comes with the "
-            "training port (ROADMAP Queue 1, training item); run under "
-            "torch.no_grad() or torch.inference_mode()")
-
-
 def _on_cpu(*tensors) -> bool:
     """True when every tensor is on the CPU, False when every one is on
     one CUDA device; raises on anything else."""
@@ -193,20 +191,28 @@ def _check_shapes(masks, vecs, N: int, O: int):
                          f"got {tuple(vecs.shape)}")
 
 
-def layout_compose(boxes, masks, vecs, H: int, W: int,
-                   out_dtype=None) -> torch.Tensor:
-    """Compose with tent weights built from ``boxes`` (N, O, 4).
+def _needs_grad(*tensors) -> bool:
+    """Whether autograd must record the call: inference calls skip the
+    Function's host cost."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
-    masks (N, O, M, M) and vecs (N, O, D) (already multiplied by the
-    object mask) -> (N, H, W, D) in ``out_dtype`` (default: vecs' dtype;
-    the kernel writes float32 or bfloat16 and sums in float32).
-    """
-    _check_forward_only(boxes, masks, vecs)
-    out_dtype = out_dtype or vecs.dtype
-    if boxes.ndim != 3 or boxes.shape[-1] != 4:
-        raise ValueError(f"boxes must be (N, O, 4), got {tuple(boxes.shape)}")
+
+def _plain_vjp(fn, inputs, needs, grad_out):
+    """Gradients of ``fn(*inputs)`` against ``grad_out`` for the inputs
+    flagged in ``needs`` (None for the others), recomputing ``fn`` in f32
+    with autograd."""
+    with torch.enable_grad():
+        xs = [t.detach().float().requires_grad_(need)
+              for t, need in zip(inputs, needs)]
+        out = fn(*xs)
+        wanted = [x for x in xs if x.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out.float()))
+    return tuple(next(grads).to(t.dtype) if need else None
+                 for t, need in zip(inputs, needs))
+
+
+def _launch_boxes(boxes, masks, vecs, H, W, out_dtype):
     N, O = boxes.shape[:2]
-    _check_shapes(masks, vecs, N, O)
     if _on_cpu(boxes, masks, vecs):
         return layout_compose_ref(boxes.float(), masks.float(), vecs.float(),
                                   H, W).to(out_dtype)
@@ -230,21 +236,9 @@ def layout_compose(boxes, masks, vecs, H: int, W: int,
     return out
 
 
-def layout_compose_weights(wy, wx, masks, vecs,
-                           out_dtype=None) -> torch.Tensor:
-    """Compose with given tent weights wy (N, O, H, M) and wx (N, O, W, M);
-    masks (N, O, M, M), vecs (N, O, D) -> (N, H, W, D) in ``out_dtype``
-    (default: vecs' dtype).  The kernel does both M-sums itself."""
-    _check_forward_only(wy, wx, masks, vecs)
-    out_dtype = out_dtype or vecs.dtype
-    if wy.ndim != 4 or wx.ndim != 4:
-        raise ValueError("wy and wx must be (N, O, H, M) and (N, O, W, M)")
+def _launch_weights(wy, wx, masks, vecs, out_dtype):
     N, O, H, M = wy.shape
     W = wx.shape[2]
-    _check_shapes(masks, vecs, N, O)
-    if wx.shape != (N, O, W, M) or masks.shape[-1] != M:
-        raise ValueError(f"inconsistent shapes: wy {tuple(wy.shape)}, "
-                         f"wx {tuple(wx.shape)}, masks {tuple(masks.shape)}")
     if _on_cpu(wy, wx, masks, vecs):
         return layout_compose_weights_ref(
             wy.float(), wx.float(), masks.float(), vecs.float()).to(out_dtype)
@@ -266,6 +260,79 @@ def layout_compose_weights(wy, wx, masks, vecs,
                            f"cudaError {rc}")
     layout_compose_weights.launches += 1
     return out
+
+
+class _ComposeBoxes(torch.autograd.Function):
+    """The boxes entry: the kernel forward, ``_v2_bwd``'s recompute
+    backward."""
+
+    @staticmethod
+    def forward(ctx, boxes, masks, vecs, H, W, out_dtype):
+        ctx.save_for_backward(boxes, masks, vecs)
+        ctx.H, ctx.W = H, W
+        return _launch_boxes(boxes, masks, vecs, H, W, out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        H, W = ctx.H, ctx.W
+        grads = _plain_vjp(lambda b, m, v: layout_compose_ref(b, m, v, H, W),
+                           ctx.saved_tensors, ctx.needs_input_grad[:3],
+                           grad_out)
+        return grads + (None, None, None)
+
+
+class _ComposeWeights(torch.autograd.Function):
+    """The weights entry: the kernel forward, ``_bwd``'s recompute
+    backward."""
+
+    @staticmethod
+    def forward(ctx, wy, wx, masks, vecs, out_dtype):
+        ctx.save_for_backward(wy, wx, masks, vecs)
+        return _launch_weights(wy, wx, masks, vecs, out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = _plain_vjp(layout_compose_weights_ref, ctx.saved_tensors,
+                           ctx.needs_input_grad[:4], grad_out)
+        return grads + (None,)
+
+
+def layout_compose(boxes, masks, vecs, H: int, W: int,
+                   out_dtype=None) -> torch.Tensor:
+    """Compose with tent weights built from ``boxes`` (N, O, 4).
+
+    masks (N, O, M, M) and vecs (N, O, D) (already multiplied by the
+    object mask) -> (N, H, W, D) in ``out_dtype`` (default: vecs' dtype;
+    the kernel writes float32 or bfloat16 and sums in float32).
+    Differentiable in all three inputs.
+    """
+    out_dtype = out_dtype or vecs.dtype
+    if boxes.ndim != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"boxes must be (N, O, 4), got {tuple(boxes.shape)}")
+    _check_shapes(masks, vecs, *boxes.shape[:2])
+    if _needs_grad(boxes, masks, vecs):
+        return _ComposeBoxes.apply(boxes, masks, vecs, H, W, out_dtype)
+    return _launch_boxes(boxes, masks, vecs, H, W, out_dtype)
+
+
+def layout_compose_weights(wy, wx, masks, vecs,
+                           out_dtype=None) -> torch.Tensor:
+    """Compose with given tent weights wy (N, O, H, M) and wx (N, O, W, M);
+    masks (N, O, M, M), vecs (N, O, D) -> (N, H, W, D) in ``out_dtype``
+    (default: vecs' dtype).  The kernel does both M-sums itself.
+    Differentiable in all four inputs."""
+    out_dtype = out_dtype or vecs.dtype
+    if wy.ndim != 4 or wx.ndim != 4:
+        raise ValueError("wy and wx must be (N, O, H, M) and (N, O, W, M)")
+    N, O, H, M = wy.shape
+    W = wx.shape[2]
+    _check_shapes(masks, vecs, N, O)
+    if wx.shape != (N, O, W, M) or masks.shape[-1] != M:
+        raise ValueError(f"inconsistent shapes: wy {tuple(wy.shape)}, "
+                         f"wx {tuple(wx.shape)}, masks {tuple(masks.shape)}")
+    if _needs_grad(wy, wx, masks, vecs):
+        return _ComposeWeights.apply(wy, wx, masks, vecs, out_dtype)
+    return _launch_weights(wy, wx, masks, vecs, out_dtype)
 
 
 layout_compose.launches = 0

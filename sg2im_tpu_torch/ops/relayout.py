@@ -19,9 +19,16 @@ must be channels_last contiguous (the wrapper makes no copy; the call site
 states the layout).  For a CPU tensor it computes the plain version
 (``space_to_depth_ref``, ``depth_to_space_ref``), a reshape and a permute
 of the NHWC view, which returns channels_last too.  The kernels are a byte
-copy, so every dtype is taken.  They are forward only: with grad mode on
-and an input that requires a gradient the wrappers raise.
-``<wrapper>.launches`` counts kernel launches and nothing else.
+copy, so every dtype is taken.  ``<wrapper>.launches`` counts kernel
+launches and nothing else.
+
+Gradients: each wrapper is a ``torch.autograd.Function`` whose backward is
+the other entry, depth_to_space being the adjoint (and inverse) of
+space_to_depth, so a gradient is the incoming one moved back, bit for bit.
+On CUDA the backward launches the other kernel; an incoming gradient that is
+not channels_last is made so first, and ``<wrapper>.grad_copies`` counts
+those copies.  The backward is itself the other wrapper, so it has a
+gradient too.  A call that needs no gradient skips the Function.
 """
 
 from __future__ import annotations
@@ -49,11 +56,6 @@ def depth_to_space_ref(x) -> torch.Tensor:
 
 
 def _check_kernel_input(x, N, R, Rw, C):
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError(
-            "the relayout kernel is forward only: its backward (the other "
-            "entry, d2s being the adjoint of s2d) comes with the training "
-            "port; run under torch.no_grad() or torch.inference_mode()")
     if x.device.type != "cuda":
         raise ValueError(f"relayout runs on CPU or CUDA, not {x.device}")
     if not x.is_contiguous(memory_format=torch.channels_last):
@@ -81,16 +83,10 @@ def _launch(entry: str, x, out_shape, N, R, Rw, C) -> torch.Tensor:
     return out.permute(0, 3, 1, 2)
 
 
-def space_to_depth(x) -> torch.Tensor:
-    """(N, C, 2R, 2Rw) -> (N, 4C, R, Rw), phase-major channels; on CUDA x
-    must be channels_last and the result is channels_last."""
-    if x.ndim != 4:
-        raise ValueError(f"x must be (N, C, H, W), got {tuple(x.shape)}")
-    N, C, H, W = x.shape
-    if H % 2 or W % 2:
-        raise ValueError(f"space_to_depth needs even H and W, got {H}x{W}")
+def _s2d(x) -> torch.Tensor:
     if x.device.type == "cpu":
         return space_to_depth_ref(x)
+    N, C, H, W = x.shape
     R, Rw = H // 2, W // 2
     _check_kernel_input(x, N, R, Rw, C)
     out = _launch("sg2im_space_to_depth", x, (N, 4 * C, R, Rw), N, R, Rw, C)
@@ -98,17 +94,10 @@ def space_to_depth(x) -> torch.Tensor:
     return out
 
 
-def depth_to_space(x) -> torch.Tensor:
-    """(N, 4C, R, Rw) -> (N, C, 2R, 2Rw), the inverse of
-    :func:`space_to_depth`; on CUDA x must be channels_last and the result
-    is channels_last."""
-    if x.ndim != 4:
-        raise ValueError(f"x must be (N, 4C, R, Rw), got {tuple(x.shape)}")
-    N, C4, R, Rw = x.shape
-    if C4 % 4:
-        raise ValueError(f"depth_to_space needs 4C channels, got {C4}")
+def _d2s(x) -> torch.Tensor:
     if x.device.type == "cpu":
         return depth_to_space_ref(x)
+    N, C4, R, Rw = x.shape
     C = C4 // 4
     _check_kernel_input(x, N, R, Rw, C)
     out = _launch("sg2im_depth_to_space", x, (N, C, 2 * R, 2 * Rw), N, R, Rw,
@@ -117,5 +106,64 @@ def depth_to_space(x) -> torch.Tensor:
     return out
 
 
+def _grad_nhwc(g, wrapper) -> torch.Tensor:
+    """The incoming gradient of ``wrapper``'s output as the other kernel
+    reads it: channels_last, counting the copy when one is made."""
+    if g.device.type == "cpu" or g.is_contiguous(
+            memory_format=torch.channels_last):
+        return g
+    wrapper.grad_copies += 1
+    return g.contiguous(memory_format=torch.channels_last)
+
+
+class _SpaceToDepth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _s2d(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return depth_to_space(_grad_nhwc(g, space_to_depth))
+
+
+class _DepthToSpace(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _d2s(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return space_to_depth(_grad_nhwc(g, depth_to_space))
+
+
+def space_to_depth(x) -> torch.Tensor:
+    """(N, C, 2R, 2Rw) -> (N, 4C, R, Rw), phase-major channels; on CUDA x
+    must be channels_last and the result is channels_last."""
+    if x.ndim != 4:
+        raise ValueError(f"x must be (N, C, H, W), got {tuple(x.shape)}")
+    H, W = x.shape[2:]
+    if H % 2 or W % 2:
+        raise ValueError(f"space_to_depth needs even H and W, got {H}x{W}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SpaceToDepth.apply(x)
+    return _s2d(x)
+
+
+def depth_to_space(x) -> torch.Tensor:
+    """(N, 4C, R, Rw) -> (N, C, 2R, 2Rw), the inverse of
+    :func:`space_to_depth`; on CUDA x must be channels_last and the result
+    is channels_last."""
+    if x.ndim != 4:
+        raise ValueError(f"x must be (N, 4C, R, Rw), got {tuple(x.shape)}")
+    if x.shape[1] % 4:
+        raise ValueError(f"depth_to_space needs 4C channels, got "
+                         f"{x.shape[1]}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _DepthToSpace.apply(x)
+    return _d2s(x)
+
+
 space_to_depth.launches = 0
 depth_to_space.launches = 0
+space_to_depth.grad_copies = 0
+depth_to_space.grad_copies = 0

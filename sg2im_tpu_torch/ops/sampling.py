@@ -1,4 +1,5 @@
-"""Separable bilinear ("tent") sampling, plain PyTorch.
+"""Bilinear sampling, plain PyTorch: separable ("tent") sampling, the
+crops' linspace grids and the border-clamped gather sampler.
 
 Counterpart of ``sg2im_tpu/ops/sampling.py``.  Every sampling grid of the
 layout warp is separable, so bilinear sampling with torch-0.4
@@ -37,3 +38,43 @@ def separable_sample(img: torch.Tensor, wy: torch.Tensor,
     """``wy @ img @ wx^T``: img (..., H, W), wy (..., HH, H), wx (..., WW, W)
     -> (..., HH, WW)."""
     return torch.matmul(torch.matmul(wy, img), wx.transpose(-1, -2))
+
+
+def tensor_linspace(start: torch.Tensor, end: torch.Tensor,
+                    steps: int) -> torch.Tensor:
+    """Linspace between per-element ``start`` and ``end`` (upstream
+    ``bilinear.py:249-278``): ``start.shape + (steps,)``, endpoints
+    included."""
+    w_end = torch.linspace(0.0, 1.0, steps, dtype=start.dtype,
+                           device=start.device)
+    w_start = torch.linspace(1.0, 0.0, steps, dtype=start.dtype,
+                             device=start.device)
+    return start[..., None] * w_start + end[..., None] * w_end
+
+
+def bilinear_sample_border(img: torch.Tensor, X: torch.Tensor,
+                           Y: torch.Tensor) -> torch.Tensor:
+    """Gather-based bilinear sampling with upstream's hand-written
+    sampler's border clamp (``bilinear.py:191-246``): corner indices are
+    clamped into the image, and coordinates scale by the size, not size - 1.
+
+    img (N, C, H, W); X, Y (N, HH, WW) in [0, 1] image space -> (N, C, HH,
+    WW)."""
+    N, C, H, W = img.shape
+    gx, gy = X * W, Y * H
+    x0 = gx.floor().clamp(0, W - 1)
+    x1 = (x0 + 1).clamp(0, W - 1)
+    y0 = gy.floor().clamp(0, H - 1)
+    y1 = (y0 + 1).clamp(0, H - 1)
+    flat = img.reshape(N, C, H * W)
+
+    def gather(yi, xi):
+        idx = (yi * W + xi).long().reshape(N, 1, -1).expand(-1, C, -1)
+        return torch.gather(flat, 2, idx).reshape(N, C, *yi.shape[1:])
+
+    w1 = ((x1 - gx) * (y1 - gy))[:, None]
+    w2 = ((x1 - gx) * (gy - y0))[:, None]
+    w3 = ((gx - x0) * (y1 - gy))[:, None]
+    w4 = ((gx - x0) * (gy - y0))[:, None]
+    return (w1 * gather(y0, x0) + w2 * gather(y1, x0) + w3 * gather(y0, x1)
+            + w4 * gather(y1, x1))

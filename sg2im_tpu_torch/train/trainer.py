@@ -1,0 +1,212 @@
+"""Trainer: the modules, state initialisation, stepping, validation and
+checkpoints (counterpart of ``sg2im_tpu/train/trainer.py``, upstream
+``scripts/train.py main()`` without the command line).
+
+Its device is the card unless the caller asks for another
+(``Trainer(config, vocab, device="cpu")``).  Batches come from memory: a
+dict of numpy arrays in the JAX package's layout (imgs (N, H, W, 3)), as
+``bench.py`` and the tests make them, or of tensors in the port's (imgs
+(N, 3, H, W)); :meth:`Trainer.to_device` stages either.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sg2im_tpu_torch.inference import full_fp32
+from sg2im_tpu_torch.models import (
+    AcCropDiscriminator,
+    PatchDiscriminator,
+    Sg2ImGenerator,
+)
+from sg2im_tpu_torch.nn.layers import init_weights
+from sg2im_tpu_torch.train.config import TrainConfig
+from sg2im_tpu_torch.train.state import TrainState
+from sg2im_tpu_torch.train.step import (
+    make_optimizers,
+    make_train_step,
+    model_losses,
+)
+from sg2im_tpu_torch.utils.metrics import jaccard
+
+_INT_KEYS = ("objs", "triples")
+
+
+class Trainer:
+    def __init__(self, config: TrainConfig, vocab, device="cuda"):
+        if config.data_parallel > 1:
+            raise NotImplementedError(
+                "data_parallel > 1 needs the port of parallel/mesh.py "
+                "(ROADMAP Queue 1, item 12)")
+        self.config = config
+        self.vocab = vocab
+        self.device = torch.device(device)
+        # The modules are templates on the CPU: a step runs them on the
+        # state's tensors (functional_call), and init_state seeds them from
+        # a CPU generator, so a seed gives the same weights on any device.
+        self.generator = Sg2ImGenerator(vocab, **config.generator_kwargs())
+        self.d_obj = (AcCropDiscriminator(vocab, **config.d_obj_kwargs())
+                      if config.use_obj_discriminator else None)
+        self.d_img = (PatchDiscriminator(**config.d_img_kwargs())
+                      if config.use_img_discriminator else None)
+        self.optimizers = make_optimizers(config)
+        self.train_step = make_train_step(self.generator, self.d_obj,
+                                          self.d_img, config, self.optimizers)
+        # Host mirror of state.step, read from the device once per
+        # (re)start: it selects the eval-mode regime without a sync per
+        # step.
+        self._host_step: int | None = None
+
+    # -- batches and initialisation ---------------------------------------
+
+    def to_device(self, batch: dict) -> dict:
+        """A batch as the step takes it: tensors on the trainer's device,
+        imgs NCHW float32, objs and triples int64.  numpy imgs are read as
+        NHWC (the JAX package's layout), tensors as NCHW."""
+        out = {}
+        for k, v in batch.items():
+            if v is None:
+                continue
+            if isinstance(v, np.ndarray):
+                if k == "imgs":
+                    v = v.transpose(0, 3, 1, 2)
+                v = torch.from_numpy(np.ascontiguousarray(v))
+            v = v.to(self.device, non_blocking=True)
+            out[k] = v.long() if k in _INT_KEYS else v.float()
+        return out
+
+    def dummy_batch(self, n: int | None = None) -> dict:
+        """An all-trivial numpy batch of ``n`` (default batch_size) images
+        in the JAX package's layout."""
+        c = self.config
+        N = n or c.batch_size
+        H, W = c.image_size
+        O, T = c.pad_objects_to, c.pad_triples_to
+        batch = {
+            "imgs": np.zeros((N, H, W, 3), np.float32),
+            "objs": np.zeros((N, O), np.int32),
+            "boxes": np.tile(np.array([0.0, 0.0, 1.0, 1.0], np.float32),
+                             (N, O, 1)),
+            "triples": np.zeros((N, T, 3), np.int32),
+            "obj_mask": np.ones((N, O), np.float32),
+            "triple_mask": np.ones((N, T), np.float32),
+        }
+        if c.mask_size and c.dataset == "coco":
+            batch["masks"] = np.zeros((N, O, c.mask_size, c.mask_size),
+                                      np.float32)
+        return batch
+
+    def _noise_rng(self, seed: int):
+        if self.config.layout_noise_dim <= 0:
+            return None
+        return torch.Generator(device=self.device).manual_seed(
+            seed).get_state()
+
+    def init_state(self, seed: int | None = None) -> TrainState:
+        """Fresh weights from one CPU ``torch.Generator`` seeded with
+        ``seed`` (default config.seed), G then D_obj then D_img, with
+        upstream's distributions; fresh Adams; the layout-noise generator
+        on the device seeded with ``seed``."""
+        seed = self.config.seed if seed is None else seed
+        gen = torch.Generator().manual_seed(seed)
+        fields = {"step": torch.zeros((), dtype=torch.int32,
+                                      device=self.device),
+                  "noise_rng": self._noise_rng(seed)}
+        for name in ("g", "d_obj", "d_img"):
+            module = self.modules()[name]
+            if module is None:
+                continue
+            init_weights(module, gen)
+            sd = {k: v.detach().to(self.device, copy=True) for k, v in
+                  module.state_dict().items()}
+            fields[name] = sd
+            fields[name + "_opt"] = self.optimizers[name].init(
+                {k: sd[k] for k, _ in module.named_parameters()})
+        self._host_step = 0
+        return TrainState(**fields)
+
+    def modules(self) -> dict:
+        return {"g": self.generator, "d_obj": self.d_obj,
+                "d_img": self.d_img}
+
+    def reset_g_optimizer(self, state: TrainState) -> TrainState:
+        """A fresh Adam for the generator, at the eval_mode_after switch
+        (upstream ``train.py:509-512``)."""
+        params = {k: state.g[k] for k, _ in self.generator.named_parameters()}
+        return state.replace(g_opt=self.optimizers["g"].init(params))
+
+    # -- stepping ----------------------------------------------------------
+
+    def eval_mode(self) -> bool:
+        """Whether the next step runs G in eval mode: from step
+        ``eval_mode_after`` on; a negative value never switches (upstream
+        ``train.py:466``)."""
+        return 0 <= self.config.eval_mode_after <= self._host_step
+
+    def step(self, state: TrainState, batch: dict, noise=None):
+        """One train step -> (new state, metrics as 0-dim device tensors).
+        TF32 is off for every f32 matmul and convolution of the step."""
+        if self._host_step is None:
+            self._host_step = int(state.step)  # one sync at (re)start
+        eval_mode = self.eval_mode()
+        with full_fp32():
+            out = self.train_step(state, self.to_device(batch),
+                                  eval_mode=eval_mode, noise=noise)
+        self._host_step += 1
+        return out
+
+    # -- validation (upstream check_model, train.py:309-384) ---------------
+
+    @torch.no_grad()
+    def check_model(self, state: TrainState, batches, num_samples=None):
+        """Validation sweep in eval mode: (mean losses, mean box IoU).  The
+        layout noise of each batch comes from a generator on the device
+        seeded with the state's step."""
+        c = self.config
+        G = self.generator.eval()
+        tot_losses: dict[str, float] = {}
+        tot_iou, tot_objs, seen = 0.0, 0.0, 0
+        gen = torch.Generator(device=self.device).manual_seed(int(state.step))
+        H, W = c.image_size
+        for batch in batches:
+            if num_samples is not None and seen >= num_samples:
+                break
+            b = self.to_device(batch)
+            N = b["imgs"].shape[0]
+            noise = None
+            if c.layout_noise_dim > 0:
+                noise = torch.randn((N, c.layout_noise_dim, H, W),
+                                    generator=gen, device=self.device)
+            with full_fp32():
+                imgs, boxes, masks, rel_scores = torch.func.functional_call(
+                    G, state.g, (b["objs"], b["triples"], b["obj_mask"],
+                                b["triple_mask"]),
+                    dict(layout_noise=noise, boxes_gt=b["boxes"],
+                         masks_gt=b.get("masks")))
+            losses = model_losses(c, b, imgs, boxes, masks, rel_scores)
+            losses["total_loss"] = sum(losses.values())
+            for k, v in losses.items():
+                tot_losses[k] = tot_losses.get(k, 0.0) + float(v) * N
+            tot_iou += float(jaccard(boxes, b["boxes"], b["obj_mask"]))
+            tot_objs += float(b["obj_mask"].sum())
+            seen += N
+        mean_losses = {k: v / max(seen, 1) for k, v in tot_losses.items()}
+        return mean_losses, tot_iou / max(tot_objs, 1.0)
+
+    # -- checkpoints -------------------------------------------------------
+
+    def save_checkpoint(self, state: TrainState, path: str, extra=None,
+                        arrays=None, wait: bool = True):
+        from sg2im_tpu_torch.ckpt.store import save_checkpoint
+
+        save_checkpoint(path, state, config=self.config, vocab=self.vocab,
+                        extra=extra, arrays=arrays, wait=wait)
+
+    def load_checkpoint(self, path: str):
+        """-> (state, meta); tensors land on the trainer's device."""
+        from sg2im_tpu_torch.ckpt.store import load_checkpoint
+
+        restored, meta = load_checkpoint(path, self.device)
+        self._host_step = None  # re-read from the restored counter
+        return restored, meta

@@ -1,9 +1,36 @@
-"""Image metrics of the fidelity gate (counterpart of
-``sg2im_tpu/utils/metrics.py::psnr``)."""
+"""Metrics of validation and of the fidelity gate (counterparts of
+``sg2im_tpu/utils/metrics.py``: ``jaccard`` and ``psnr``)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def intersection(bbox_pred, bbox_gt):
+    """Box intersection areas, elementwise over (..., 4) boxes."""
+    max_xy = torch.minimum(bbox_pred[..., 2:], bbox_gt[..., 2:])
+    min_xy = torch.maximum(bbox_pred[..., :2], bbox_gt[..., :2])
+    inter = (max_xy - min_xy).clamp_min(0.0)
+    return inter[..., 0] * inter[..., 1]
+
+
+def jaccard(bbox_pred, bbox_gt, mask=None):
+    """Sum of per-box IoU (upstream ``metrics.py:27-35``), over the boxes
+    whose ``mask`` is 1; a box pair with no union counts 0, not NaN."""
+    inter = intersection(bbox_pred, bbox_gt)
+    area_pred = ((bbox_pred[..., 2] - bbox_pred[..., 0])
+                 * (bbox_pred[..., 3] - bbox_pred[..., 1]))
+    area_gt = ((bbox_gt[..., 2] - bbox_gt[..., 0])
+               * (bbox_gt[..., 3] - bbox_gt[..., 1]))
+    union = area_pred + area_gt - inter
+    pos = union > 0
+    iou = torch.where(pos, inter / torch.where(pos, union,
+                                               torch.ones_like(union)),
+                      torch.zeros_like(union))
+    if mask is not None:
+        iou = iou * mask.to(iou.dtype)
+    return iou.sum()
 
 
 def psnr(a, b, max_val: float = 255.0) -> float:

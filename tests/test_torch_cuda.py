@@ -9,9 +9,10 @@ need not be installed:
 
 The comparisons are those of ``chip_smoke.py`` phases 3 to 5 (layout
 compose: 1e-5 abs; conv: s8 within 1 ulp, bf16 within 1e-4 of max |out|;
-relayout: bit-equal), and of its serving phase (the server's launches per
+relayout: bit-equal), of its serving phase (the server's launches per
 engine call; the on-device deprocess bit-equal to the host's; noise on the
-card used where it lies).
+card used where it lies) and of its training phase (the kernels'
+gradients, a full-width step, the NaN guard).
 """
 
 import numpy as np
@@ -183,9 +184,15 @@ def test_relayout_wrappers_reject_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="channels_last"):
         rl.depth_to_space(x)
     with torch.inference_mode(False):
+        # A gradient is taken: the backward is the other entry.
         g = torch.randn(2, 8, 4, 6, device=card, requires_grad=True)
-        with pytest.raises(RuntimeError, match="forward only"):
-            rl.space_to_depth(g.contiguous(memory_format=torch.channels_last))
+        gy = torch.randn(2, 32, 2, 3, device=card)
+        before = rl.depth_to_space.launches
+        (got,) = torch.autograd.grad(
+            rl.space_to_depth(g.contiguous(
+                memory_format=torch.channels_last)), g, gy)
+        assert rl.depth_to_space.launches == before + 1
+        assert torch.equal(got, rl.depth_to_space_ref(gy))
 
 
 def test_packed_generator_launches_the_relayout_kernel(card):
@@ -285,3 +292,87 @@ def test_device_noise_makes_no_host_copy(card):
     a, _ = engine.generate(graphs, noise=noise[:3])
     b, _ = engine.generate(graphs, noise=noise[:3].cpu().numpy())
     np.testing.assert_array_equal(a, b)
+
+
+@pytest.fixture
+def train_card():
+    """The card with autograd on (training), TF32 as the Trainer sets it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    yield torch.device("cuda")
+
+
+def _coco64(card):
+    """vocab, config and the b32 batch on the card (imgs NCHW)."""
+    from sg2im_tpu_torch.tools.profile_train import coco64
+
+    vocab, cfg, batch = coco64()
+    batch = {k: torch.from_numpy(v).to(card) for k, v in batch.items()}
+    batch["imgs"] = batch["imgs"].permute(0, 3, 1, 2).contiguous()
+    return vocab, cfg, batch
+
+
+def test_train_kernel_gradients_on_the_card(train_card):
+    """K1 through its Function at the training shape, f32 and bf16 out:
+    the forward against the plain compose, the gradients within 1e-5 of
+    max |grad| of autograd through it; K3's backward bit-equal to the
+    plain relayout's (chip_smoke.check_train_gradients)."""
+    with full_fp32():
+        chip_smoke.check_train_gradients(torch, _coco64(train_card)[2])
+
+
+def test_full_width_train_step_on_the_card(train_card):
+    """One COCO-64 b32 step of the Trainer on the card: finite losses, not
+    skipped, K1 launched once, every state tensor finite."""
+    from sg2im_tpu_torch.train.state import tensors
+    from sg2im_tpu_torch.train.trainer import Trainer
+
+    vocab, cfg, batch = _coco64(train_card)
+    tr = Trainer(cfg, vocab, device=train_card)
+    before = lk.layout_compose.launches
+    state, m = tr.step(tr.init_state(seed=0), batch)
+    assert lk.layout_compose.launches == before + 1
+    assert not bool(m["skipped_nonfinite"])
+    assert all(np.isfinite(float(v)) for v in m.values())
+    assert all(torch.isfinite(v).all() for k, v in tensors(state).items()
+               if v.is_floating_point())
+
+
+def test_nan_guard_on_the_card(train_card):
+    """A batch with one NaN image leaves every parameter, moment and
+    BatchNorm buffer of the three models bit-identical."""
+    from sg2im_tpu_torch.train.trainer import Trainer
+
+    vocab, cfg, batch = _coco64(train_card)
+    tr = Trainer(cfg, vocab, device=train_card)
+    state, _ = tr.step(tr.init_state(seed=0), batch)
+    before = chip_smoke.state_tensors(state)
+    bad = dict(batch, imgs=batch["imgs"].clone())
+    bad["imgs"][0, 0, 0, 0] = float("nan")
+    state2, m = tr.step(state, bad)
+    assert bool(m["skipped_nonfinite"])
+    after = chip_smoke.state_tensors(state2)
+    assert all(torch.equal(after[k], v) for k, v in before.items())
+
+
+def test_packed_train_step_launches_k3_forward_and_backward(train_card):
+    """A COCO-64 b32 step in 'packed': both relayout entries launch in the
+    G forward and again in the G backward (counts read at the step's
+    phase marks)."""
+    from sg2im_tpu_torch.tools.profile_train import coco64
+    from sg2im_tpu_torch.train.trainer import Trainer
+
+    vocab, _, batch = _coco64(train_card)
+    tr = Trainer(coco64(crn_mode="packed")[1], vocab, device=train_card)
+    marks = {}
+    tr.train_step.marker = lambda phase: marks.setdefault(
+        phase, (rl.space_to_depth.launches, rl.depth_to_space.launches))
+    start = (rl.space_to_depth.launches, rl.depth_to_space.launches)
+    try:
+        _, m = tr.step(tr.init_state(seed=0), batch)
+    finally:
+        tr.train_step.marker = None
+    assert not bool(m["skipped_nonfinite"])
+    fwd, bwd = marks["g_forward"], marks["g_backward"]
+    assert all(f > s for f, s in zip(fwd, start))
+    assert all(b > f for b, f in zip(bwd, fwd))

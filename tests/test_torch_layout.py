@@ -170,14 +170,20 @@ def test_wrappers_on_cpu_use_plain_version_and_count_nothing():
 
 
 def test_wrappers_are_forward_only_and_check_inputs():
+    """The wrappers take inputs that require a gradient (the training
+    path) and give autograd's gradient of the plain version; they check
+    devices and shapes."""
     N, O, H, W, M, D, _ = SHAPES["square"]
     vecs, boxes, masks, _ = _inputs(N, O, H, W, M, D, False)
     tb, tm, tv = _t(boxes, masks, vecs)
     tv.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        tk.layout_compose(tb, tm, tv, H, W)
+    (got,) = torch.autograd.grad(tk.layout_compose(tb, tm, tv, H, W).sum(),
+                                 tv)
+    (want,) = torch.autograd.grad(
+        tk.layout_compose_ref(tb, tm, tv, H, W).sum(), tv)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
     with torch.no_grad():
-        tk.layout_compose(tb, tm, tv, H, W)
+        assert not tk.layout_compose(tb, tm, tv, H, W).requires_grad
     tv = tv.detach()
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tk.layout_compose(tb.to("meta"), tm.to("meta"), tv.to("meta"), H, W)

@@ -89,11 +89,25 @@ def test_batchnorm_eval_matches_jax(shape):
 
 
 def test_batchnorm_drops_num_batches_tracked_and_refuses_training():
+    """A loaded num_batches_tracked is dropped; train mode takes batch
+    statistics and moves the running ones as the JAX BatchNorm does."""
     bn = tlayers.BatchNorm(3)
     state = dict(bn.state_dict(), num_batches_tracked=torch.tensor(7))
     bn.load_state_dict(state, strict=True)
-    with pytest.raises(NotImplementedError, match="train-mode"):
-        bn.train()(torch.zeros(2, 3))
+    x = np.random.RandomState(2).randn(5, 3).astype(np.float32) * 2 + 1
+    jbn = jlayers.BatchNorm(3)
+    variables = jbn.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want, upd = jbn.apply(variables, jnp.asarray(x), train=True,
+                          mutable=["batch_stats"])
+    got = bn.train()(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=EXACT)
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               np.asarray(upd["batch_stats"]["bn"]["mean"]),
+                               atol=EXACT)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(upd["batch_stats"]["bn"]["var"]),
+                               atol=EXACT)
 
 
 def test_instance_norm_matches_jax():

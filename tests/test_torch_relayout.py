@@ -94,15 +94,16 @@ def test_relayout_wrappers_refuse_bad_shapes():
 
 def test_relayout_wrappers_refuse_other_devices_and_gradients():
     """A tensor that is not on the CPU takes the kernel's checks: they
-    refuse a gradient and a device other than CUDA, and nothing is
-    counted."""
+    refuse a device other than CUDA, with or without a gradient, and
+    nothing is counted.  A gradient itself is taken: the backward of each
+    entry is the other one."""
     before = (rl.space_to_depth.launches, rl.depth_to_space.launches)
     meta = torch.empty(1, 4, 4, 4, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         rl.space_to_depth(meta)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         rl.depth_to_space(meta)
-    with pytest.raises(RuntimeError, match="forward only"):
+    with pytest.raises(ValueError, match="CPU or CUDA"):
         rl.space_to_depth(meta.requires_grad_())
     with torch.no_grad():
         with pytest.raises(ValueError, match="CPU or CUDA"):
