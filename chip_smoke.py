@@ -62,11 +62,31 @@ with a non-zero exit code:
    state bit-identical; an async save loaded into a fresh Trainer takes
    the uninterrupted run's next step (cuDNN deterministic); median ms per
    step, img/s and peak memory of f32 and bf16 / 'split'; K1's forward
-   and plain-backward time per step.
+   and plain-backward time per step;
+10. the training CLI: sg2im_tpu_torch.cli.train on a synthetic COCO
+   written here in the on-disk formats (JPEGs, instances and stuff JSON
+   with polygon and RLE segmentations) at COCO-64's full widths, b32, 40
+   steps, in f32 / 'legacy' and bf16 / 'split': clean exit and finite
+   losses; the loader's first batches after prefetch_to_device bit-equal
+   to the host's; step 1 (reading the decoded-sample cache, PIL decoder)
+   equal to a direct Trainer.step on the loader's first batch; a run
+   stopped at step 20 and resumed by `python -m sg2im_tpu_torch.cli.train
+   --restore_from_checkpoint true` equal at steps 30 and 40; the snapshot
+   through run_model on the card; K1's launches exactly the steps, the
+   check_model batches, three per triptych and step_breakdown's G calls,
+   and no other kernel; median ms per step, img/s, the loader's wait, the
+   idle share under torch.profiler and peak memory beside phase_train's
+   in-memory step, the same steps with the decoded-sample cache, and
+   in-memory steps on the loader's first batch with cuDNN's default
+   algorithms, its deterministic ones and the CLI's deterministic mode,
+   and whether two runs from one init repeat bit for bit under the last
+   two (the CLI's must).
+   The CLI's output goes to build/chip_smoke/.
 
 Each path (the turbo CLI, the vg128 requests of f32 and bf16/split, the
 turbo requests, the requests of each further CRN mode, the HTTP traffic of
-each server, the train steps of each mode) runs with the kernels' launch
+each server, the train steps of each mode, the uninterrupted CLI run of
+each mode) runs with the kernels' launch
 counts set to 0 just before it and read just after; the
 conv wrappers' padded input copies, counted the same way, must stay 0 on
 every path and in every timed batch-128 forward.
@@ -80,6 +100,7 @@ same function where there is one; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -1762,6 +1783,487 @@ def phase_train(torch, card, launches):
     return numbers
 
 
+# The training CLI (sg2im_tpu_torch.cli.train) on a synthetic COCO in the
+# on-disk formats: COCO-64 at TrainConfig's full widths, b32.
+CLI_TRAIN_IMAGES, CLI_VAL_IMAGES = 256, 64
+CLI_STEPS = 40
+CLI_MODES = {"f32/legacy": [],
+             "bf16/split": ["--bf16_compute", "true", "--crn_mode", "split"]}
+CLI_PREFETCH_BATCHES = 8   # host vs card, bit for bit
+CLI_IDLE_STEPS = (3, 12)   # the profiled window, steps counted from 1
+# COCO 2017's category ids: 80 things among 1..90, stuff 92..182, and
+# 'other' (183), which the dataset leaves out by default.
+COCO_THING_IDS = [i for i in range(1, 91) if i not in
+                  (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+COCO_STUFF_IDS = list(range(92, 184))
+
+
+def _synthetic_image(rng, H, W):
+    """Smooth structure plus noise, so that JPEG coding is realistic."""
+    y, x = np.mgrid[0:H, 0:W]
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    freq = rng.uniform(0.01, 0.06, 3)
+    base = np.stack([127 + 100 * np.sin(freq[c] * (x + 2 * y) + phase[c])
+                     for c in range(3)], -1)
+    return np.clip(base + rng.randint(-20, 20, base.shape), 0,
+                   255).astype(np.uint8)
+
+
+def _polygon(rng, W, H):
+    """A star-shaped polygon (flat [x0, y0, ...]) and its box."""
+    n = rng.randint(5, 12)
+    cx, cy = rng.uniform(0.25 * W, 0.75 * W), rng.uniform(0.25 * H, 0.75 * H)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+    rad = rng.uniform(0.12, 0.3, n) * min(W, H) + 10
+    xs = np.clip(cx + rad * np.cos(ang), 0, W - 1).round(2)
+    ys = np.clip(cy + rad * np.sin(ang), 0, H - 1).round(2)
+    box = [float(xs.min()), float(ys.min()), float(xs.max() - xs.min()),
+           float(ys.max() - ys.min())]
+    return np.stack([xs, ys], 1).reshape(-1).tolist(), box
+
+
+def _region(rng, W, H):
+    """A random blob as a (H, W) mask and its box."""
+    x0, y0 = rng.randint(0, W // 2), rng.randint(0, H // 2)
+    w, h = rng.randint(W // 4, W - x0), rng.randint(H // 4, H - y0)
+    m = np.zeros((H, W), np.uint8)
+    m[y0:y0 + h, x0:x0 + w] = rng.rand(h, w) > 0.15
+    return m, [float(x0), float(y0), float(w), float(h)]
+
+
+def write_coco(root, n_images, split, seed):
+    """A COCO-Stuff split in the on-disk formats under ``root``: JPEGs of
+    about 320x240, instances JSON with polygons (and a few uncompressed
+    RLE crowds), stuff JSON with compressed RLE.  About 9 images in 10
+    hold 3..8 objects that pass the dataset's filters; the rest hold 9
+    and are filtered out.  -> (image dir, instances path, stuff path)."""
+    from PIL import Image
+
+    from sg2im_tpu_torch.data.rle import mask_to_rle
+
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, f"{split}2017")
+    os.makedirs(img_dir, exist_ok=True)
+    images, inst, stuff = [], [], []
+    for i in range(n_images):
+        W, H = 320 + 16 * rng.randint(-2, 3), 240 + 16 * rng.randint(-2, 3)
+        image_id = 1 + i + (0 if split == "train" else 100000)
+        name = f"{image_id:012d}.jpg"
+        Image.fromarray(_synthetic_image(rng, H, W)).save(
+            os.path.join(img_dir, name), quality=90)
+        images.append({"id": image_id, "file_name": name, "width": W,
+                       "height": H})
+        n_obj = 9 if rng.rand() < 0.1 else rng.randint(3, 9)
+        n_stuff = rng.randint(1, min(3, n_obj - 1) + 1)
+        for j in range(n_obj):
+            ann = {"id": len(inst) + len(stuff) + 1, "image_id": image_id,
+                   "iscrowd": 0}
+            if j < n_stuff:
+                m, box = _region(rng, W, H)
+                ann.update(category_id=int(rng.choice(COCO_STUFF_IDS[:-1])),
+                           bbox=box, segmentation=mask_to_rle(m))
+                stuff.append(ann)
+                continue
+            if rng.rand() < 0.1:
+                m, box = _region(rng, W, H)
+                flat = m.T.reshape(-1)
+                change = np.nonzero(np.diff(flat))[0] + 1
+                runs = np.diff(np.concatenate([[0], change, [flat.size]]))
+                if flat[0]:
+                    runs = np.concatenate([[0], runs])
+                seg = {"size": [H, W], "counts": runs.tolist()}
+                ann["iscrowd"] = 1
+            else:
+                poly, box = _polygon(rng, W, H)
+                seg = [poly]
+            ann.update(category_id=int(rng.choice(COCO_THING_IDS)), bbox=box,
+                       segmentation=seg)
+            inst.append(ann)
+    thing_cats = [{"id": c, "name": f"thing{c}"} for c in COCO_THING_IDS]
+    stuff_cats = [{"id": c, "name": "other" if c == 183 else f"stuff{c}"}
+                  for c in COCO_STUFF_IDS]
+    paths = []
+    for kind, cats, anns in (("instances", thing_cats, inst),
+                             ("stuff", stuff_cats, stuff)):
+        path = os.path.join(root, f"{kind}_{split}2017.json")
+        with open(path, "w") as f:
+            json.dump({"images": images, "categories": cats,
+                       "annotations": anns}, f)
+        paths.append(path)
+    return img_dir, paths[0], paths[1]
+
+
+def check_prefetch(torch, host_batches, size, busy_ms=0.0):
+    """``prefetch_to_device`` on the card against the host batches, bit
+    for bit, with a consumer slower than the producer: before it reads
+    each batch, the compute stream spins ``busy_ms`` and the host sleeps
+    as long.  -> the number of batches compared."""
+    from sg2im_tpu_torch.data.loader import prefetch_to_device
+
+    host_batches = list(host_batches)
+    n = 0
+    for got, want in zip(prefetch_to_device(iter(host_batches), size=size,
+                                            device="cuda"), host_batches):
+        if busy_ms:
+            torch.cuda._sleep(int(busy_ms * 1.5e6))
+            time.sleep(busy_ms / 1e3)
+        for k, v in want.items():
+            ref = torch.from_numpy(np.asarray(v))
+            if k == "imgs":
+                ref = ref.permute(0, 3, 1, 2)
+            dt = torch.int64 if k in ("objs", "triples") else torch.float32
+            g = got[k]
+            if not (g.is_cuda and g.dtype == dt and g.is_contiguous()
+                    and torch.equal(g.cpu(), ref.to(dt))):
+                fail(f"prefetch_to_device batch {n} {k} differs from the "
+                     f"host batch (size {size})")
+        n += 1
+    if n != len(host_batches):
+        fail(f"prefetch_to_device gave {n} of {len(host_batches)} batches")
+    return n
+
+
+def _cli_log(out_dir, kind):
+    with open(os.path.join(out_dir, "log.jsonl")) as f:
+        return {r["t"]: r for r in map(json.loads, f) if r["kind"] == kind}
+
+
+def _run_cli(argv, log_path):
+    """sg2im_tpu_torch.cli.train.main in this process, its stdout into
+    ``log_path``; fails unless it returns 0."""
+    import contextlib
+
+    from sg2im_tpu_torch.cli import train as cli
+
+    with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+        rc = cli.main(argv)
+    if rc != 0:
+        fail(f"train CLI exited {rc}; its output is in {log_path}")
+
+
+def _idle_share(torch, argv, log_path):
+    """One short CLI run under torch.profiler: the card's idle share over
+    the steps CLI_IDLE_STEPS (from the start of the first one's host
+    range to the end of the last one's; --timing fences each step), the
+    device's busy ms per step there and the window's ms per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _run_cli(argv, log_path)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    steps = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "train_step" and e.device_type != cuda)
+    first, last = CLI_IDLE_STEPS
+    if len(steps) < last:
+        fail(f"profiled CLI run shows {len(steps)} train_step ranges")
+    lo, hi = steps[first - 1][0], steps[last - 1][1]
+    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                   for e in events
+                   if e.device_type == cuda and e.name != "train_step")
+    busy, end = 0.0, lo
+    for a, b in spans:  # the union of the device's intervals
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    if busy <= 0:
+        fail("the profiled CLI steps show no device activity")
+    steps = last - first + 1
+    return 1.0 - busy / (hi - lo), busy / 1e3 / steps, (hi - lo) / 1e3 / steps
+
+
+def determinism_costs(torch, trainer, batch):
+    """In-memory steps of ``trainer`` on ``batch`` (no loader, no fence
+    between steps) with cuDNN's default algorithms, with its
+    deterministic ones (as phase_train runs), and under the CLI's
+    ``deterministic()`` (PyTorch's deterministic algorithms too): {name:
+    (median ms a step over 10 after 3 warm-up, kernels a step, kernel ms
+    a step over 3 profiled steps)}."""
+    import contextlib
+
+    from sg2im_tpu_torch.cli import train as cli
+    from sg2im_tpu_torch.tools.profile_train import kernel_profile
+
+    @contextlib.contextmanager
+    def cudnn(deterministic):
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.deterministic = saved
+
+    state = trainer.init_state(seed=0)
+    out = {}
+    for name, ctx in (("cudnn default", lambda: cudnn(False)),
+                      ("cudnn deterministic", lambda: cudnn(True)),
+                      ("deterministic()", cli.deterministic)):
+        with ctx():
+            state, ms, _, _ = timed_steps(torch, trainer, state, batch,
+                                          TRAIN_WARMUP, TRAIN_TIMED)
+            busy, count, _, _ = kernel_profile(trainer, state, batch)
+        out[name] = (ms, count, busy)
+    return out
+
+
+def repeatability(torch, trainer, batch, steps=5):
+    """Two runs of ``steps`` in-memory steps from one init, under cuDNN's
+    deterministic algorithms alone and under the CLI's
+    ``deterministic()``: {name: state tensors that differ between the two
+    runs}.  Fails unless the CLI's mode repeats bit for bit, which its
+    resume relies on."""
+    from sg2im_tpu_torch.cli import train as cli
+    from sg2im_tpu_torch.train.state import tensors
+
+    def run():
+        state = trainer.init_state(seed=0)
+        for _ in range(steps):
+            state, _ = trainer.step(state, batch)
+        return {k: v.clone() for k, v in tensors(state).items()
+                if k != "noise_rng"}
+
+    saved = torch.backends.cudnn.deterministic
+    out = {}
+    for name, ctx in (("cudnn deterministic", None),
+                      ("deterministic()", cli.deterministic)):
+        torch.backends.cudnn.deterministic = True
+        try:
+            if ctx is None:
+                a, b = run(), run()
+            else:
+                with ctx():
+                    a, b = run(), run()
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        out[name] = (sum(not torch.equal(a[k], b[k]) for k in a), len(a))
+    if out["deterministic()"][0]:
+        fail(f"two runs under the CLI's deterministic() differ in "
+             f"{out['deterministic()'][0]} state tensors")
+    return out
+
+
+def phase_train_cli(torch, card, launches, in_memory):
+    """The training CLI on a synthetic COCO at COCO-64 full widths, b32,
+    in f32 / 'legacy' and bf16 / 'split'; see the module docstring."""
+    from sg2im_tpu_torch import native
+    from sg2im_tpu_torch.cli import train as cli
+    from sg2im_tpu_torch.data.decode import resolve_decoder
+    from sg2im_tpu_torch.data.loader import PaddedLoader
+    from sg2im_tpu_torch.native import imagedec
+    from sg2im_tpu_torch.train.trainer import Trainer
+
+    logs = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(logs, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train = write_coco(tmp, CLI_TRAIN_IMAGES, "train", seed=0)
+        val = write_coco(tmp, CLI_VAL_IMAGES, "val", seed=1)
+        base = ["--dataset", "coco", "--batch_size", "32",
+                "--coco_train_image_dir", train[0],
+                "--coco_train_instances_json", train[1],
+                "--coco_train_stuff_json", train[2],
+                "--coco_val_image_dir", val[0],
+                "--coco_val_instances_json", val[1],
+                "--coco_val_stuff_json", val[2],
+                "--num_val_samples", "64", "--loader_num_workers", "4",
+                "--device", "cuda"]
+        config = cli.config_from_args(cli.build_parser().parse_args(base))
+        vocab, train_ds, val_ds = cli.build_datasets(config)
+        decoder = resolve_decoder("auto")
+        print(f"[train_cli] synthetic COCO: {CLI_TRAIN_IMAGES} train and "
+              f"{CLI_VAL_IMAGES} val JPEGs, {len(train_ds)} and "
+              f"{len(val_ds)} pass the filters, "
+              f"{len(vocab['object_idx_to_name'])} object classes, written "
+              f"and read in {time.perf_counter() - t0:.1f} s; --decoder auto "
+              f"resolves to {decoder} (native decoder library built: "
+              f"{imagedec.build() is not None}); native RLE codec built: "
+              f"{native.native_available()}")
+        loader_kw = dict(batch_size=32, O_max=config.pad_objects_to,
+                         T_max=config.pad_triples_to, num_workers=4, seed=0)
+        host, loader = [], PaddedLoader(train_ds, **loader_kw)
+        while len(host) < CLI_PREFETCH_BATCHES:  # over epochs if need be
+            host.extend(list(loader)[:CLI_PREFETCH_BATCHES - len(host)])
+        n = check_prefetch(torch, iter(host), size=2, busy_ms=20.0)
+        print(f"[train_cli] prefetch_to_device: the loader's first {n} "
+              f"batches on the card bit-equal to the host's (a consumer "
+              f"20 ms slower than the producer on the stream and the host)")
+        cache_dir = os.path.join(tmp, "cache")
+        cached_ds = cli.build_datasets(dataclasses.replace(
+            config, cache_dir=cache_dir, decoder="pil"))[1]
+        first_cached = next(iter(PaddedLoader(cached_ds, **loader_kw)))
+        for k, v in host[0].items():
+            if not np.array_equal(v, first_cached[k]):
+                fail(f"the cached loader's first batch differs in {k}")
+        per_epoch = len(train_ds) // 32
+        sweeps = [min(-(-64 // 32), n // 32) for n in (len(train_ds),
+                                                        len(val_ds))]
+        checkpoints = CLI_STEPS // 20
+        prints = CLI_STEPS // 10
+        k1_want = (CLI_STEPS + checkpoints * sum(sweeps)
+                   + 3 * checkpoints * sum(s > 0 for s in sweeps)
+                   + 4 * prints)
+        with open(os.path.join(tmp, "graphs.json"), "w") as f:
+            json.dump([{"objects": ["thing1", "stuff92", "thing18"],
+                        "relationships": [[0, "left of", 1],
+                                          [2, "above", 1]]},
+                       {"objects": ["stuff150", "thing5"],
+                        "relationships": [[1, "inside", 0]]}], f)
+
+        for mode, flags in CLI_MODES.items():
+            tag = mode.replace("/", "_")
+            run = base + flags + ["--print_every", "10", "--checkpoint_every",
+                                  "20", "--snapshot_every", "20", "--timing",
+                                  "true", "--async_checkpoint", "true"]
+            full = os.path.join(tmp, f"{tag}_full")
+            reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _run_cli(run + ["--num_iterations", str(CLI_STEPS),
+                            "--output_dir", full],
+                     os.path.join(logs, f"train_cli_{tag}_full.log"))
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            path = read_launches()
+            check_no_padded_copies(f"the train CLI ({mode})")
+            add_launches(launches, path)
+            k1 = path["layout_compose_boxes"]
+            others = {k: v for k, v in path.items()
+                      if k != "layout_compose_boxes" and v}
+            if k1 != k1_want or others:
+                fail(f"train CLI {mode}: K1 launched {k1} times, expected "
+                     f"{k1_want}; other kernels {others}")
+            losses = _cli_log(full, "train")
+            timing = _cli_log(full, "timing")
+            bad = [t for t, r in losses.items()
+                   if not all(np.isfinite(v) for k, v in r.items()
+                              if k != "kind") or r["skipped_nonfinite"]]
+            if sorted(losses) != list(range(10, CLI_STEPS + 1, 10)) or bad:
+                fail(f"train CLI {mode}: logged steps {sorted(losses)}, "
+                     f"non-finite or skipped at {bad}")
+            window = [timing[t] for t in range(11, CLI_STEPS + 1)]
+            iter_ms = float(np.median([r["iter_ms"] for r in window]))
+            step_ms = float(np.median([r["step_ms"] for r in window]))
+            wait = [r["loader_wait_ms"] for r in window]
+            # The steps that neither print nor checkpoint.
+            plain = [r["iter_ms"] for r in window if r["t"] % 10]
+
+            # The first step against a direct Trainer.step on the loader's
+            # first batch, from the same init; this run reads the cache
+            # and decodes with PIL.
+            first = os.path.join(tmp, f"{tag}_first")
+            _run_cli(base + flags + [
+                "--num_iterations", "1", "--print_every", "1",
+                "--cache_dir", cache_dir, "--decoder", "pil",
+                "--output_dir", first],
+                os.path.join(logs, f"train_cli_{tag}_first.log"))
+            got = _cli_log(first, "train")[1]
+            mcfg = cli.config_from_args(cli.build_parser().parse_args(
+                base + flags))
+            tr = Trainer(mcfg, vocab, device="cuda")
+            with cli.deterministic():
+                _, want = tr.step(tr.init_state(seed=0), host[0])
+            diff = {k: (got[k], float(v)) for k, v in want.items()
+                    if got[k] != float(v)}
+            if diff:
+                fail(f"train CLI {mode}: step 1 differs from Trainer.step "
+                     f"on the loader's first batch: {diff}")
+            first_batch = tr.to_device(host[0])
+            costs = determinism_costs(torch, tr, first_batch)
+            repeat = repeatability(torch, tr, first_batch)
+            del tr, first_batch
+
+            # The same steps with the decoded-sample cache: the loader's
+            # decode leaves the training process's hot path.
+            cached = os.path.join(tmp, f"{tag}_cached")
+            _run_cli(base + flags + [
+                "--num_iterations", "24", "--print_every", "1000",
+                "--checkpoint_every", "1000", "--timing", "true",
+                "--cache_dir", cache_dir, "--output_dir", cached],
+                os.path.join(logs, f"train_cli_{tag}_cached.log"))
+            c_ms = float(np.median([r["iter_ms"] for t, r in
+                                    _cli_log(cached, "timing").items()
+                                    if t > 4]))
+
+            # Resume: 20 steps here, then the module entry point in a
+            # subprocess to step 40; steps 30 and 40 as uninterrupted.
+            part = os.path.join(tmp, f"{tag}_part")
+            _run_cli(run + ["--num_iterations", "20", "--output_dir", part],
+                     os.path.join(logs, f"train_cli_{tag}_part.log"))
+            t1 = time.perf_counter()
+            with open(os.path.join(logs, f"train_cli_{tag}_resume.log"),
+                      "w") as log:
+                proc = subprocess.run(
+                    [sys.executable, "-m", "sg2im_tpu_torch.cli.train", *run,
+                     "--num_iterations", str(CLI_STEPS), "--output_dir",
+                     part, "--restore_from_checkpoint", "true"],
+                    cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                    timeout=900)
+            resume_s = time.perf_counter() - t1
+            if proc.returncode != 0:
+                fail(f"train CLI {mode}: the resumed subprocess exited "
+                     f"{proc.returncode}")
+            resumed = _cli_log(part, "train")
+            for t in (30, 40):
+                if resumed.get(t) != losses[t]:
+                    fail(f"train CLI {mode}: resumed step {t} "
+                         f"{resumed.get(t)} != uninterrupted {losses[t]}")
+
+            # The snapshot through run_model on the card.
+            snap = os.path.join(full, f"snapshot_{CLI_STEPS:07d}.pt")
+            imgs = cli_images(["--checkpoint", snap, "--scene_graphs_json",
+                               os.path.join(tmp, "graphs.json"),
+                               "--noise", "zeros", "--device", "cuda"])
+            if imgs.shape != (2, 64, 64, 3) or imgs.dtype != np.uint8:
+                fail(f"run_model on the snapshot wrote {imgs.shape} "
+                     f"{imgs.dtype}")
+
+            idle, busy_ms, win_ms = _idle_share(torch, base + flags + [
+                "--num_iterations", str(CLI_IDLE_STEPS[1]), "--print_every",
+                "1000", "--checkpoint_every", "1000", "--timing", "true",
+                "--output_dir", os.path.join(tmp, f"{tag}_prof")],
+                os.path.join(logs, f"train_cli_{tag}_prof.log"))
+            mem_ms, mem_ips, _ = in_memory[mode]
+            print(f"[train_cli] {mode} b32 {CLI_STEPS} steps ({per_epoch} "
+                  f"batches an epoch) in {wall:.1f} s: median {iter_ms:.3f} "
+                  f"ms/step over steps 11-{CLI_STEPS} ({32e3 / iter_ms:.1f} "
+                  f"img/s; mean {np.mean(plain):.3f} and max "
+                  f"{max(plain):.3f} over the {len(plain)} steps that "
+                  f"neither print nor checkpoint), the fenced step "
+                  f"{step_ms:.3f} ms, loader wait {np.mean(wait):.3f} "
+                  f"ms/step mean (median {np.median(wait):.3f}, max "
+                  f"{max(wait):.3f}); with the decoded-sample cache "
+                  f"{c_ms:.3f} ms/step (median of steps 5-24); idle share "
+                  f"{idle:.3f} over steps {CLI_IDLE_STEPS[0]}-"
+                  f"{CLI_IDLE_STEPS[1]} under torch.profiler ({busy_ms:.3f} "
+                  f"ms of device time in {win_ms:.3f} ms a step there; "
+                  f"{1 - busy_ms / iter_ms:.3f} against the unprofiled "
+                  f"median step); decoder {decoder}; peak device memory "
+                  f"{peak / 2**30:.2f} GiB; phase_train's in-memory step "
+                  f"{mem_ms:.3f} ms ({mem_ips:.1f} img/s); on {card}")
+            print(f"[train_cli] {mode}: in-memory steps on the loader's "
+                  f"first batch, ms a step / kernels a step / kernel ms a "
+                  f"step: " + "; ".join(
+                      f"{name} {ms:.3f} / {count:.0f} / {busy:.3f}"
+                      for name, (ms, count, busy) in costs.items())
+                  + "; two 5-step runs from one init differ in " + ", ".join(
+                      f"{n} of {total} state tensors under {name}"
+                      for name, (n, total) in repeat.items())
+                  + f"; on {card}")
+            print(f"[train_cli] {mode}: K1 launches {k1} = {CLI_STEPS} steps"
+                  f" + {checkpoints} x {sum(sweeps)} check_model batches + "
+                  f"3 x {checkpoints * sum(s > 0 for s in sweeps)} triptychs"
+                  f" + 4 x {prints} step_breakdown G calls, K2 K3 K4 0; step 1"
+                  f" equal to Trainer.step (cache, --decoder pil); steps 30 "
+                  f"and 40 of `python -m sg2im_tpu_torch.cli.train "
+                  f"--restore_from_checkpoint true` ({resume_s:.1f} s) equal "
+                  f"to the uninterrupted run's; snapshot_{CLI_STEPS:07d}.pt "
+                  f"through run_model --device cuda: {imgs.shape}")
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1778,7 +2280,8 @@ def main() -> int:
     phase_checkpoint(torch, launches)
     phase_vg128(torch, card, launches)
     phase_serve(torch, card, launches)
-    phase_train(torch, card, launches)
+    in_memory = phase_train(torch, card, launches)
+    phase_train_cli(torch, card, launches, in_memory)
     layout_src = "sg2im_tpu/ops/pallas/layout_kernel.py"
     conv_replaces = "scripts/proto_pallas_conv.py:122"
     relayout_src = "sg2im_tpu/ops/pallas/relayout_kernel.py"

@@ -9,8 +9,11 @@ layout compose (``csrc/layout_compose.cu``), the 3x3 conv
 (``csrc/conv3x3.cu``), whose int8 entry carries the int8 turbo serving
 tier, and the space-to-depth / depth-to-space relayout of the CRN's
 'packed' and 'phase' modes (``csrc/relayout.cu``).  ``train/`` is the
-GAN training step and its Trainer, with gradients through those kernels.
-The package imports neither JAX nor the JAX package.
+GAN training step and its Trainer, with gradients through those kernels;
+``cli/train.py`` trains on COCO or Visual Genome through ``data/`` (the
+datasets, loader and prefetch to the card) and ``native/`` (the host's C
+RLE codec and image decoder).  The package imports neither JAX nor the
+JAX package.
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,10 @@ package's own converter (``sg2im_tpu/ckpt/torch_convert.py``), for the
 generator and both discriminators; ``train_state_from_jax`` carries a whole
 JAX ``TrainState`` across, optimizer moments included;
 ``calibration_from_jax`` carries the int8 tier's activation scales across.
-``store`` saves and resumes the port's own train state.
+``load_reference_bundle`` reads a warm start (the generator and both
+discriminators), ``export_reference_checkpoint`` writes the generator back
+in the reference layout; ``store`` saves and resumes the port's own train
+state.
 """
 
 from __future__ import annotations
@@ -153,6 +156,12 @@ def clean_model_kwargs(model_kwargs) -> tuple[dict, dict | None]:
     return kw, vocab
 
 
+def _strip_module(state: dict) -> dict:
+    """Remove DataParallel's ``module.`` prefixes."""
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in state.items()}
+
+
 def load_reference_checkpoint(path) -> tuple[dict, dict, dict]:
     """Load a reference-layout ``.pt`` (full or stripped) on the CPU.
 
@@ -160,12 +169,49 @@ def load_reference_checkpoint(path) -> tuple[dict, dict, dict]:
     ``module.`` prefixes removed from the state dict.  Only tensors and
     plain containers are unpickled (``weights_only=True``).
     """
+    bundle = load_reference_bundle(path)
+    return bundle["vocab"], bundle["model_kwargs"], bundle["generator"]
+
+
+def load_reference_bundle(path) -> dict:
+    """Everything a warm start takes from a reference-layout ``.pt`` (the
+    counterpart of the JAX package's ``convert_checkpoint``): a dict of
+    ``model_kwargs`` (vocab removed), ``vocab``, ``generator`` (the state
+    dict), ``d_obj`` / ``d_img`` (the discriminators' state dicts, or None
+    when the file has none) with ``d_obj_kwargs`` / ``d_img_kwargs``, and
+    the training ``args``.  The port's modules keep upstream's names, so
+    each state dict loads as it is."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     kwargs, vocab = clean_model_kwargs(ckpt["model_kwargs"])
     if vocab is None:
         vocab = ckpt.get("vocab")
     if vocab is None:
         raise ValueError(f"{path}: no vocab in model_kwargs or checkpoint")
-    state = {(k[len("module."):] if k.startswith("module.") else k): v
-             for k, v in ckpt["model_state"].items()}
-    return vocab, kwargs, state
+    out = {"model_kwargs": kwargs, "vocab": vocab,
+           "generator": _strip_module(ckpt["model_state"]),
+           "args": ckpt.get("args")}
+    for name in ("d_obj", "d_img"):
+        sd = ckpt.get(name + "_state")
+        out[name] = _strip_module(sd) if sd else None
+        dk = dict(ckpt.get(name + "_kwargs") or {}) if sd else None
+        if dk is not None:
+            dk.pop("vocab", None)
+        out[name + "_kwargs"] = dk
+    return out
+
+
+def export_reference_checkpoint(path, generator_state: dict, model_kwargs,
+                                vocab, args=None):
+    """Write the generator as a reference-layout ``.pt`` (``model_state``,
+    ``model_kwargs`` with the vocab, ``args``), which upstream's
+    ``Sg2ImModel(**model_kwargs).load_state_dict(model_state)`` and the
+    JAX package's ``convert_checkpoint`` read (the JAX package's
+    ``export_torch_checkpoint``).  The port-only kwargs ``compute_dtype``
+    and ``crn_mode`` are left out."""
+    kw = dict(model_kwargs, vocab=vocab)
+    kw.pop("compute_dtype", None)
+    kw.pop("crn_mode", None)
+    torch.save({"model_state": {k: v.detach().to("cpu", copy=True)
+                                for k, v in generator_state.items()},
+                "model_kwargs": kw, "args": dict(args or {})}, path)
+    return path

@@ -1,14 +1,15 @@
-"""Scene graphs -> padded batches, and deprocessing of generated images.
+"""Data pipeline: scene graphs -> padded batches (this module), image
+transforms, the COCO and Visual Genome datasets with their decoders, RLE
+codec and decoded-sample cache, and the padded loader with its prefetch to
+the card (counterpart of ``sg2im_tpu/data/``).
 
-Host-side numpy, the counterparts of ``sg2im_tpu/data/scene_graphs.py``,
-``batching.py`` (``GraphBatch``, ``pad_graphs``) and ``transforms.py``
-(``imagenet_deprocess_batch``), kept inside the port so that the port
-imports nothing of the JAX package (tests hold the two copies equal), and
-the deprocess on the device (``imagenet_deprocess_batch_torch``, the
-counterpart of ``imagenet_deprocess_batch_jnp``), which the engine runs;
-the host version is the reference it is held to, bit for bit.
-Every image's graph is padded to static (O, T) slots with validity masks;
-triple subject/object entries are within-image slot indices.
+Host-side numpy, kept inside the port so that the port imports nothing of
+the JAX package (tests hold the two copies equal).  This module holds the
+counterparts of ``sg2im_tpu/data/scene_graphs.py`` and ``batching.py``
+(``GraphBatch``, ``encode_scene_graphs``) and re-exports the deprocess
+functions of :mod:`sg2im_tpu_torch.data.transforms`.  Every image's graph
+is padded to static (O, T) slots with validity masks; triple
+subject/object entries are within-image slot indices.
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-import torch
 
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+from sg2im_tpu_torch.data.transforms import (  # noqa: F401 (re-exported)
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    imagenet_deprocess_batch,
+    imagenet_deprocess_batch_torch,
+)
 
 
 def round_up(x: int, m: int) -> int:
@@ -95,32 +99,3 @@ def encode_scene_graphs(scene_graphs, vocab, align: int = 1) -> GraphBatch:
         batch.triples[n, : len(t)] = np.asarray(t, np.int32).reshape(-1, 3)
         batch.triple_mask[n, : len(t)] = True
     return batch
-
-
-def imagenet_deprocess_batch(imgs: np.ndarray) -> np.ndarray:
-    """(N, H, W, 3) imagenet-normalised float -> (N, H, W, 3) uint8:
-    denormalise, min-max rescale each image over all channels, scale by
-    255, clip, truncate (reference ``imagenet_deprocess_batch``)."""
-    x = np.asarray(imgs) * IMAGENET_STD + IMAGENET_MEAN
-    lo = x.reshape(x.shape[0], -1).min(axis=1)[:, None, None, None]
-    hi = x.reshape(x.shape[0], -1).max(axis=1)[:, None, None, None]
-    x = (x - lo) / (hi - lo)
-    return np.clip(x * 255.0, 0, 255).astype(np.uint8)
-
-
-def imagenet_deprocess_batch_torch(imgs: torch.Tensor) -> torch.Tensor:
-    """:func:`imagenet_deprocess_batch` on the tensor's own device: (N, H,
-    W, 3) float -> (N, H, W, 3) uint8 (an NCHW tensor goes in as its
-    ``permute(0, 2, 3, 1)`` view, no copy).
-
-    Eager elementwise ops, one IEEE float32 operation each in the host
-    path's order (no fused multiply-add), so the bytes equal the host
-    path's on the CPU and on the card."""
-    mean = torch.as_tensor(IMAGENET_MEAN, device=imgs.device)
-    std = torch.as_tensor(IMAGENET_STD, device=imgs.device)
-    x = imgs.float() * std + mean
-    flat = x.reshape(x.shape[0], -1)
-    lo = flat.amin(dim=1)[:, None, None, None]
-    hi = flat.amax(dim=1)[:, None, None, None]
-    x = (x - lo) / (hi - lo)
-    return (x * 255.0).clamp(0, 255).to(torch.uint8)

@@ -32,6 +32,10 @@ The modules are templates run with ``torch.func.functional_call`` on the
 tensors of a :class:`TrainState`; a step returns a new state and never
 writes into the one it was given.
 
+``train_step.phase_fns`` holds one probe per section of the step (G
+forward, G forward and backward, each discriminator's step) for
+``Trainer.step_breakdown``; the probes change no state.
+
 ``train_step.marker``, None by default, may be set to a callable: the
 step then calls it with the name of each phase as the phase's work has
 been issued (``g_forward``, ``g_backward``, ``g_optimizer`` and
@@ -112,6 +116,13 @@ class SkippableAdam:
         updates = {k: torch.where(good, a, zero) for k, a in zip(names, u)}
         return updates, AdamState(count=count, mu=dict(zip(names, m_new)),
                                   nu=dict(zip(names, v_new)))
+
+
+def global_norm(tensors: dict) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax's
+    ``global_norm``)."""
+    norms = torch._foreach_norm(list(tensors.values()), 2)
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def apply_updates(params: dict, updates: dict) -> dict:
@@ -345,5 +356,49 @@ def make_train_step(generator, d_obj, d_img, config, optimizers=None):
         metrics["skipped_nonfinite"] = ~good
         return state.replace(**new), metrics
 
+    # Per-section probes for --timing (upstream's forward / loss /
+    # backward sections, train.py:524-560; the JAX package's
+    # ``phase_fns``).  Each runs one section of the step on the inputs it
+    # is given, on copies of the BatchNorm buffers, and returns a fence:
+    # a 0-dim tensor that depends on all of the section's output, the
+    # gradients' global norm included.  None changes the state.
+    def phase_g_forward(state, batch, noise):
+        """G's train-mode forward -> (the fakes, their sum)."""
+        params, bufs = G.split(state.g)
+        generator.train(True)
+        with torch.no_grad():
+            imgs_pred = G(params, _copies(bufs), batch["objs"],
+                          batch["triples"], batch["obj_mask"],
+                          batch["triple_mask"], layout_noise=noise,
+                          boxes_gt=batch["boxes"],
+                          masks_gt=batch.get("masks"))[0]
+        return imgs_pred, imgs_pred.sum()
+
+    def phase_g_forward_backward(state, batch, noise):
+        """G's losses and their gradients -> total + gradient norm."""
+        params, bufs = G.split(state.g)
+        leaves = _leaves(params)
+        total = generator_losses(leaves, _copies(bufs), state.d_obj,
+                                 state.d_img, batch, noise, False)[0]
+        return total.detach() + global_norm(_grads(total, leaves))
+
+    def phase_d_step(name, tpl, losses_fn):
+        def phase(state, batch, imgs_fake):
+            """The discriminator's losses on the fakes and the real images
+            and their gradients -> total + gradient norm."""
+            params, bufs = tpl.split(getattr(state, name))
+            leaves = _leaves(params)
+            total = losses_fn(leaves, _copies(bufs), imgs_fake, batch)[0]
+            return total.detach() + global_norm(_grads(total, leaves))
+        return phase
+
+    train_step.phase_fns = {"g_forward": phase_g_forward,
+                            "g_forward_backward": phase_g_forward_backward}
+    if DO is not None:
+        train_step.phase_fns["d_obj_step"] = phase_d_step(
+            "d_obj", DO, d_obj_losses)
+    if DI is not None:
+        train_step.phase_fns["d_img_step"] = phase_d_step(
+            "d_img", DI, d_img_losses)
     train_step.marker = None
     return train_step

@@ -3,17 +3,23 @@ checkpoints (counterpart of ``sg2im_tpu/train/trainer.py``, upstream
 ``scripts/train.py main()`` without the command line).
 
 Its device is the card unless the caller asks for another
-(``Trainer(config, vocab, device="cpu")``).  Batches come from memory: a
-dict of numpy arrays in the JAX package's layout (imgs (N, H, W, 3)), as
-``bench.py`` and the tests make them, or of tensors in the port's (imgs
-(N, 3, H, W)); :meth:`Trainer.to_device` stages either.
+(``Trainer(config, vocab, device="cpu")``).  A batch is a dict of numpy
+arrays in the JAX package's layout (imgs (N, H, W, 3)), as
+``data.loader.PaddedLoader``, ``bench.py`` and the tests make them, or of
+tensors in the port's (imgs (N, 3, H, W)), as ``data.loader.
+prefetch_to_device`` puts them on the card; :meth:`Trainer.to_device`
+stages either, and copies nothing that is already on the device in the
+step's types.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from sg2im_tpu_torch.data.transforms import imagenet_deprocess_batch_torch
 from sg2im_tpu_torch.inference import full_fp32
 from sg2im_tpu_torch.models import (
     AcCropDiscriminator,
@@ -156,34 +162,85 @@ class Trainer:
         self._host_step += 1
         return out
 
+    def step_breakdown(self, state: TrainState, batch: dict) -> dict:
+        """Device ms of each section of a train step (upstream ``--timing``,
+        ``train.py:524-560``): G forward, G forward + losses + backward,
+        each discriminator's forward + backward, run by the step's
+        ``phase_fns`` on ``batch`` after one warm-up call each, timed on
+        the host clock up to a read of the section's fence scalar (which
+        waits for the card).  The state is not changed.  The layout noise
+        comes from a generator seeded with 0, the fakes of the D sections
+        from the G forward."""
+        b = self.to_device(batch)
+        noise = self._layout_noise(0, b["imgs"].shape[0])
+        times: dict[str, float] = {}
+        imgs_fake = None
+        with full_fp32():
+            for name, fn in self.train_step.phase_fns.items():
+                arg = imgs_fake if name.startswith("d_") else noise
+                for _ in range(2):  # a warm-up call, then the timed one
+                    t0 = time.perf_counter()
+                    out = fn(state, b, arg)
+                    if name == "g_forward":
+                        imgs_fake, out = out
+                    float(out)
+                times[name] = (time.perf_counter() - t0) * 1000.0
+        return times
+
+    def _layout_noise(self, seed: int, N: int, gen=None):
+        """(N, layout_noise_dim, H, W) normal noise on the device from
+        ``gen``, or from a new generator seeded with ``seed``; None when
+        the generator takes no noise."""
+        c = self.config
+        if c.layout_noise_dim <= 0:
+            return None
+        if gen is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+        H, W = c.image_size
+        return torch.randn((N, c.layout_noise_dim, H, W), generator=gen,
+                           device=self.device)
+
     # -- validation (upstream check_model, train.py:309-384) ---------------
 
+    def _generate(self, state: TrainState, b: dict, noise, boxes_gt,
+                  masks_gt):
+        """G in eval mode on the device batch ``b``: (imgs, boxes, masks,
+        rel_scores)."""
+        G = self.generator.eval()
+        with full_fp32():
+            return torch.func.functional_call(
+                G, state.g, (b["objs"], b["triples"], b["obj_mask"],
+                            b["triple_mask"]),
+                dict(layout_noise=noise, boxes_gt=boxes_gt,
+                     masks_gt=masks_gt))
+
     @torch.no_grad()
-    def check_model(self, state: TrainState, batches, num_samples=None):
+    def check_model(self, state: TrainState, batches, num_samples=None,
+                    return_samples: bool = False):
         """Validation sweep in eval mode: (mean losses, mean box IoU).  The
         layout noise of each batch comes from a generator on the device
-        seeded with the state's step."""
+        seeded with the state's step.
+
+        With ``return_samples=True``: (mean losses, samples, batch_data,
+        mean IoU), the JAX package's tuple.  ``samples`` is the last
+        batch's :meth:`sample_triptych` deprocessed to (N, H, W, 3) uint8;
+        ``batch_data`` that batch's padded tensors and predictions as
+        numpy (objs, boxes_gt, triples, obj_mask, triple_mask, boxes_pred,
+        and masks_gt / masks_pred where there are masks).  Both are {} when
+        no batch was swept."""
         c = self.config
-        G = self.generator.eval()
         tot_losses: dict[str, float] = {}
         tot_iou, tot_objs, seen = 0.0, 0.0, 0
         gen = torch.Generator(device=self.device).manual_seed(int(state.step))
-        H, W = c.image_size
+        last = None
         for batch in batches:
             if num_samples is not None and seen >= num_samples:
                 break
             b = self.to_device(batch)
             N = b["imgs"].shape[0]
-            noise = None
-            if c.layout_noise_dim > 0:
-                noise = torch.randn((N, c.layout_noise_dim, H, W),
-                                    generator=gen, device=self.device)
-            with full_fp32():
-                imgs, boxes, masks, rel_scores = torch.func.functional_call(
-                    G, state.g, (b["objs"], b["triples"], b["obj_mask"],
-                                b["triple_mask"]),
-                    dict(layout_noise=noise, boxes_gt=b["boxes"],
-                         masks_gt=b.get("masks")))
+            noise = self._layout_noise(0, N, gen)
+            imgs, boxes, masks, rel_scores = self._generate(
+                state, b, noise, b["boxes"], b.get("masks"))
             losses = model_losses(c, b, imgs, boxes, masks, rel_scores)
             losses["total_loss"] = sum(losses.values())
             for k, v in losses.items():
@@ -191,8 +248,54 @@ class Trainer:
             tot_iou += float(jaccard(boxes, b["boxes"], b["obj_mask"]))
             tot_objs += float(b["obj_mask"].sum())
             seen += N
+            last = (b, boxes, masks)
         mean_losses = {k: v / max(seen, 1) for k, v in tot_losses.items()}
-        return mean_losses, tot_iou / max(tot_objs, 1.0)
+        avg_iou = tot_iou / max(tot_objs, 1.0)
+        if not return_samples:
+            return mean_losses, avg_iou
+        if last is None:
+            return mean_losses, {}, {}, avg_iou
+        b, boxes_pred, masks_pred = last
+        samples = {k: imagenet_deprocess_batch_torch(
+            v.permute(0, 2, 3, 1)).cpu().numpy()
+            for k, v in self.sample_triptych(state, b,
+                                             seed=int(state.step)).items()}
+
+        def host(t, key):
+            a = t.detach().cpu().numpy()
+            return a.astype(np.int32) if key in _INT_KEYS else a
+
+        batch_data = {"objs": host(b["objs"], "objs"),
+                      "boxes_gt": host(b["boxes"], "boxes"),
+                      "triples": host(b["triples"], "triples"),
+                      "obj_mask": host(b["obj_mask"], "obj_mask"),
+                      "triple_mask": host(b["triple_mask"], "triple_mask"),
+                      "boxes_pred": host(boxes_pred, "boxes_pred")}
+        if b.get("masks") is not None:
+            batch_data["masks_gt"] = host(b["masks"], "masks")
+        if masks_pred is not None:
+            batch_data["masks_pred"] = host(masks_pred, "masks_pred")
+        return mean_losses, samples, batch_data, avg_iou
+
+    @torch.no_grad()
+    def sample_triptych(self, state: TrainState, batch: dict,
+                        seed: int = 0) -> dict:
+        """G in eval mode on ``batch`` three ways (upstream
+        ``train.py:346-356``): ground-truth boxes and masks, ground-truth
+        boxes with predicted masks, predicted boxes and masks; with the
+        real images under ``gt_img``.  (N, 3, H, W) float tensors on the
+        device, imagenet-normalised; the layout noise, the same for all
+        three, from a generator seeded with ``seed``."""
+        b = self.to_device(batch)
+        noise = self._layout_noise(seed, b["imgs"].shape[0])
+
+        def run(boxes_gt, masks_gt):
+            return self._generate(state, b, noise, boxes_gt, masks_gt)[0]
+
+        return {"gt_img": b["imgs"],
+                "gt_box_gt_mask": run(b["boxes"], b.get("masks")),
+                "gt_box_pred_mask": run(b["boxes"], None),
+                "pred_box_pred_mask": run(None, None)}
 
     # -- checkpoints -------------------------------------------------------
 

@@ -11,8 +11,9 @@ The comparisons are those of ``chip_smoke.py`` phases 3 to 5 (layout
 compose: 1e-5 abs; conv: s8 within 1 ulp, bf16 within 1e-4 of max |out|;
 relayout: bit-equal), of its serving phase (the server's launches per
 engine call; the on-device deprocess bit-equal to the host's; noise on the
-card used where it lies) and of its training phase (the kernels'
-gradients, a full-width step, the NaN guard).
+card used where it lies), of its training phase (the kernels'
+gradients, a full-width step, the NaN guard) and of its training CLI
+phase (``prefetch_to_device`` bit-equal to the host batches).
 """
 
 import numpy as np
@@ -376,3 +377,22 @@ def test_packed_train_step_launches_k3_forward_and_backward(train_card):
     fwd, bwd = marks["g_forward"], marks["g_backward"]
     assert all(f > s for f, s in zip(fwd, start))
     assert all(b > f for b, f in zip(bwd, fwd))
+
+
+def test_prefetch_to_device_is_bit_equal_under_a_busy_stream(train_card):
+    """prefetch_to_device with 4 batches in flight (5 pinned buffers
+    reused across 16 batches) and a consumer slower than the producer:
+    every batch on the card equals its host batch, bit for bit
+    (chip_smoke.check_prefetch)."""
+    rng = np.random.RandomState(0)
+    N, O, T, M = 32, 16, 24, 16
+    batches = [{"imgs": rng.randn(N, 64, 64, 3).astype(np.float32),
+                "objs": rng.randint(0, 184, (N, O)).astype(np.int32),
+                "boxes": rng.rand(N, O, 4).astype(np.float32),
+                "masks": (rng.rand(N, O, M, M) > 0.5).astype(np.float32),
+                "triples": rng.randint(0, 9, (N, T, 3)).astype(np.int32),
+                "obj_mask": (rng.rand(N, O) > 0.3).astype(np.float32),
+                "triple_mask": (rng.rand(N, T) > 0.3).astype(np.float32)}
+               for _ in range(16)]
+    assert chip_smoke.check_prefetch(torch, batches, size=4,
+                                     busy_ms=10.0) == 16
