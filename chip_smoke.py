@@ -81,12 +81,41 @@ with a non-zero exit code:
    algorithms, its deterministic ones and the CLI's deterministic mode,
    and whether two runs from one init repeat bit for bit under the last
    two (the CLI's must).
-   The CLI's output goes to build/chip_smoke/.
+   The CLI's output goes to build/chip_smoke/;
+11. tools: sg2im_tpu_torch.cli.sample_images --device cuda on the
+   training CLI's f32 snapshots (--checkpoint_list of its output
+   directory) and on its Trainer checkpoint (--model_mode train,
+   ground-truth boxes and masks) over the synthetic COCO's val split, b24
+   with the last batch padded: PNG, ground-truth PNG and data.npz row
+   counts, K1 launched once per batch; checkpoint_tools export of the
+   checkpoint through run_model --device cuda, bit-equal to the snapshot
+   of the same step;
+12. parallel: parallel.dryrun's two ranks with Gloo on CUDA tensors, both
+   on cuda:0 (NCCL refuses two ranks on one card), on the tiny config
+   (step, check_model, save, restore, step) and on the COCO-64 flagship at
+   b32 (16 rows a rank), each against the one-process step on the same
+   global batch and noise (losses within DP_LOSS_BAR; a correctness run,
+   not a speed), K1 launched three times per rank; the Trainer in a
+   world-1 NCCL group against Trainer.step without one, timed in turns,
+   with its collectives per step; cli.train --multihost true at world 1
+   on NCCL from torchrun's variables;
+13. mesh: vg128 at b128 on a mesh of two data
+   rows on cuda:0 in f32, bf16 / 'split', turbo and bf16 / 'packed'
+   against the single engine on each row's graphs with the same noise
+   rows (f32 within MESH_F32_BAR, bf16 within 1 u8, turbo within 2 u8 and
+   55 dB at shared scales; the single engine's own b128 call printed
+   beside it, as cuDNN picks algorithms by batch), K1 once per row, the
+   turbo tier's K4 and 'packed''s K3 launched; and the tensor-parallel
+   mesh (2 x 2, the GCN hidden dimension split) against the replicated
+   one: boxes at tests/test_parallel.py's rtol / atol, images within
+   MESH_TP_U8.
 
 Each path (the turbo CLI, the vg128 requests of f32 and bf16/split, the
 turbo requests, the requests of each further CRN mode, the HTTP traffic of
 each server, the train steps of each mode, the uninterrupted CLI run of
-each mode) runs with the kernels' launch
+each mode, each sample_images run, the data-parallel ranks (counted in
+their processes), the world-1 NCCL steps and CLI run, each mesh engine's
+generate) runs with the kernels' launch
 counts set to 0 just before it and read just after; the
 conv wrappers' padded input copies, counted the same way, must stay 0 on
 every path and in every timed batch-128 forward.
@@ -100,6 +129,7 @@ same function where there is one; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -2044,9 +2074,14 @@ def repeatability(torch, trainer, batch, steps=5):
     return out
 
 
-def phase_train_cli(torch, card, launches, in_memory):
+def phase_train_cli(torch, card, launches, in_memory, work):
     """The training CLI on a synthetic COCO at COCO-64 full widths, b32,
-    in f32 / 'legacy' and bf16 / 'split'; see the module docstring."""
+    in f32 / 'legacy' and bf16 / 'split'; see the module docstring.  The
+    dataset and the runs' outputs stay in ``work``; returns the CLI's
+    dataset flags and the f32 run's output directory (its checkpoint and
+    snapshots)."""
+    import contextlib
+
     from sg2im_tpu_torch import native
     from sg2im_tpu_torch.cli import train as cli
     from sg2im_tpu_torch.data.decode import resolve_decoder
@@ -2056,7 +2091,7 @@ def phase_train_cli(torch, card, launches, in_memory):
 
     logs = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(logs, exist_ok=True)
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(work) as tmp:
         t0 = time.perf_counter()
         train = write_coco(tmp, CLI_TRAIN_IMAGES, "train", seed=0)
         val = write_coco(tmp, CLI_VAL_IMAGES, "val", seed=1)
@@ -2262,6 +2297,408 @@ def phase_train_cli(torch, card, launches, in_memory):
                   f"to the uninterrupted run's; snapshot_{CLI_STEPS:07d}.pt "
                   f"through run_model --device cuda: {imgs.shape}")
             torch.cuda.empty_cache()
+    return base, os.path.join(work, "f32_legacy_full")
+
+
+# Data and tensor parallelism (sg2im_tpu_torch.parallel) on the one card:
+# ranks in processes of their own with Gloo on CUDA tensors (NCCL refuses
+# two ranks on one card), NCCL at world size 1, and the mesh engines with
+# both rows (or both model columns) on cuda:0.
+DP_TIMEOUT = 600.0           # seconds a rank may take, its join included
+DP_LOSS_BAR = 2e-4           # relative, ranks against the one-process step
+NCCL_WARMUP, NCCL_TIMED = 3, 10
+MH_STEPS = 12                # cli.train --multihost at world 1
+MESH_BATCH = 128
+# The tensor-parallel mesh against the replicated one: the GCN's outputs
+# (boxes) at tests/test_parallel.py's rtol / atol, which the CPU tests
+# hold for the images too.  On the card the split hidden-dimension sums
+# round otherwise and the CRN carries that to the images as it carries
+# cuDNN's choice of algorithm by batch size (the f32 mesh against the
+# single engine's b128 call: 1 u8 level); images within MESH_TP_U8.
+MESH_TP_RTOL, MESH_TP_ATOL = 1e-4, 1e-5
+MESH_TP_U8 = 1
+MESH_F32_BAR = 1e-5          # f32 mesh against the single engine's halves
+MESH_MODES = {"f32": {},
+              "bf16/split": dict(crn_mode="split"),
+              "turbo": dict(crn_mode="split", quantize="int8"),
+              "bf16/packed": dict(crn_mode="packed")}
+
+
+def check_dryrun(name, summary, launches, k1_per_rank, card):
+    """A parallel.dryrun summary: passed, every rank's K1 launches as
+    expected; the ranks' launches count as the main path's."""
+    ranks = summary["ranks"]
+    for r in ranks:
+        add_launches(launches, {k: v for k, v in r["launches"].items()
+                                if k != "collectives"})
+    k1 = [r["launches"]["layout_compose_boxes"] for r in ranks]
+    coll = [r["launches"]["collectives"] for r in ranks]
+    total = [r["step1"]["total_loss"] for r in ranks]
+    print(f"[parallel] {name}: {len(ranks)} ranks on {summary['device']} "
+          f"({summary['backend']}, a correctness run, not a speed): step 1 "
+          f"total {total} vs one process "
+          f"{summary['single']['step1']['total_loss']}, worst relative loss "
+          f"difference over steps 1, 2 and check_model "
+          f"{summary['max_rel_loss_diff']:.3e}; K1 launches per rank {k1}; "
+          f"collectives per rank {coll}; on {card}")
+    if not summary["ok"] or summary["max_rel_loss_diff"] > DP_LOSS_BAR:
+        fail(f"{name}: the ranks' losses differ from the one-process "
+             f"step's (ok={summary['ok']})")
+    if k1 != [k1_per_rank] * len(ranks):
+        fail(f"{name}: K1 launched {k1} times per rank, expected "
+             f"{k1_per_rank}")
+
+
+@contextlib.contextmanager
+def launch_env(**env):
+    """torchrun's variables in this process's environment for the block."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+PROFILED_STEPS = 2
+
+
+def profile_steps(torch, trainer, state, batch):
+    """PROFILED_STEPS steps under torch.profiler -> per step: kernel
+    launches and memcpy calls, device ms, and host ms inside the
+    collectives' c10d::allreduce_ (0 without a group)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_STEPS):
+            state, _ = trainer.step(state, batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    calls = sum(e.count for e in events if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemcpyAsync"))
+    device = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    comm = sum(e.cpu_time_total for e in events
+               if e.key == "c10d::allreduce_")
+    n = PROFILED_STEPS
+    return calls / n, device / n / 1e3, comm / n / 1e3
+
+
+def phase_parallel(torch, card, launches, coco_flags):
+    """The data-parallel step across processes, at world size 1 on NCCL
+    and through cli.train --multihost; see the module docstring."""
+    import torch.distributed as dist
+
+    from sg2im_tpu_torch.parallel import collectives, dryrun
+    from sg2im_tpu_torch.parallel.mesh import free_port, init_process_group
+    from sg2im_tpu_torch.tools.profile_train import coco64
+    from sg2im_tpu_torch.train.trainer import Trainer
+
+    # 1. The dry run (tiny config: step, check_model, save, restore, step)
+    # and 2. the COCO-64 flagship, b32 global = 16 rows a rank: 2 ranks
+    # with Gloo on cuda:0 against one process on the same global batch.
+    for name, config in (("dryrun tiny", "tiny"), ("COCO-64 b32", "coco64")):
+        t0 = time.perf_counter()
+        summary = dryrun.run(2, "gloo", "cuda:0", config, DP_TIMEOUT)
+        print(f"[parallel] {name}: ranks and the one-process run took "
+              f"{time.perf_counter() - t0:.1f} s")
+        check_dryrun(name, summary, launches, 3, card)
+
+    # 3. NCCL at world size 1: the step with its collectives against
+    # Trainer.step without a group, in turns, on one batch.
+    vocab, cfg, batch_np = coco64()
+    plain = Trainer(cfg, vocab, device="cuda")
+    batch = plain.to_device(batch_np)
+    init_process_group("nccl", "127.0.0.1", free_port(), 0, 1)
+    try:
+        dp = Trainer(cfg, vocab, device="cuda")
+        if dp.group is None:
+            fail("the Trainer did not join the world-1 NCCL group")
+        states = {"plain": plain.init_state(seed=0),
+                  "nccl": dp.init_state(seed=0)}
+        _, m_plain = plain.step(states["plain"], batch)
+        _, m_dp = dp.step(states["nccl"], batch)
+        rel = max(abs(float(m_dp[k]) - float(m_plain[k]))
+                  / max(abs(float(m_plain[k])), 1e-6) for k in m_plain)
+        if rel > DP_LOSS_BAR:
+            fail(f"the world-1 NCCL step's losses differ by {rel:.3e}")
+        ms = {"plain": [], "nccl": []}
+        calls = k1 = 0
+        for name in ("plain", "nccl", "nccl", "plain"):
+            tr = plain if name == "plain" else dp
+            c0 = collectives.all_reduce.calls
+            reset_launches()
+            states[name], t, _, metrics = timed_steps(
+                torch, tr, states[name], batch, NCCL_WARMUP, NCCL_TIMED)
+            check_steps_finite(f"world-1 {name}", metrics)
+            path = read_launches()
+            if name == "nccl":
+                add_launches(launches, path)
+                calls += collectives.all_reduce.calls - c0
+                k1 += path["layout_compose_boxes"]
+            ms[name].append(t)
+        steps = 2 * (NCCL_WARMUP + NCCL_TIMED)
+        if k1 != steps:
+            fail(f"world-1 NCCL: K1 launched {k1} times in {steps} steps")
+        prof = {name: profile_steps(torch, tr, states[name], batch)
+                for name, tr in (("plain", plain), ("nccl", dp))}
+        extra = np.mean(ms["nccl"]) - np.mean(ms["plain"])
+        print(f"[parallel] world-1 NCCL step, COCO-64 f32 b32: median "
+              f"{ms['nccl']} ms/step against Trainer.step without a group "
+              f"{ms['plain']} (in turns: plain, nccl, nccl, plain); extra "
+              f"{extra:.3f} ms/step; {calls / steps:.1f} collectives a step "
+              f"(BatchNorm sums forward and backward, loss denominators, one "
+              f"gradient and loss all-reduce per model); step 1 losses "
+              f"within {rel:.3e} of the no-group step; under torch.profiler"
+              f" over {PROFILED_STEPS} steps, a step's launches and copies /"
+              f" device ms / host ms inside c10d::allreduce_: " + "; ".join(
+                  f"{k} {p[0]:.0f} / {p[1]:.3f} / {p[2]:.3f}"
+                  for k, p in prof.items()) + f"; on {card}")
+    finally:
+        dist.destroy_process_group()
+    del plain, dp, states, batch
+    torch.cuda.empty_cache()
+
+    # 4. cli.train --multihost at world 1, NCCL, from torchrun's variables.
+    out = tempfile.mkdtemp(prefix="multihost", dir=os.path.dirname(
+        coco_flags[coco_flags.index("--coco_train_image_dir") + 1]))
+    logs = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(logs, exist_ok=True)
+    reset_launches()
+    c0 = collectives.all_reduce.calls
+    with launch_env(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                    MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=str(free_port())):
+        _run_cli(coco_flags + [
+            "--multihost", "true", "--dist_backend", "nccl",
+            "--num_iterations", str(MH_STEPS), "--print_every", "4",
+            "--checkpoint_every", str(MH_STEPS), "--timing", "true",
+            "--output_dir", out], os.path.join(logs, "train_cli_multihost.log"))
+    if dist.is_initialized():
+        fail("cli.train --multihost left its process group initialised")
+    path = read_launches()
+    add_launches(launches, path)
+    calls = collectives.all_reduce.calls - c0
+    timing = _cli_log(out, "timing")
+    step_ms = float(np.median([timing[t]["step_ms"]
+                               for t in range(4, MH_STEPS + 1)]))
+    losses = _cli_log(out, "train")
+    if sorted(losses) != [4, 8, 12] or not os.path.isdir(
+            os.path.join(out, "checkpoint_state")):
+        fail(f"cli.train --multihost logged {sorted(losses)}")
+    print(f"[parallel] cli.train --multihost true (RANK 0, WORLD_SIZE 1, "
+          f"NCCL), COCO-64 b32 on the synthetic COCO: {MH_STEPS} steps, "
+          f"median fenced step {step_ms:.3f} ms over steps 4-{MH_STEPS}; "
+          f"{calls} collectives in the run (steps, check_model, the "
+          f"initial broadcast, the save barrier); K1 launches "
+          f"{path['layout_compose_boxes']}; checkpoint written; on {card}")
+
+
+
+def phase_mesh(torch, card, launches):
+    """The vg128 mesh and tensor-parallel engines; see the module
+    docstring."""
+    from sg2im_tpu_torch.inference import InferenceEngine
+    from sg2im_tpu_torch.models import Sg2ImGenerator
+    from sg2im_tpu_torch.parallel.mesh import make_mesh
+
+    # vg128 at b128 on a mesh of two data rows on cuda:0, per serving
+    # mode, against the single engine on each row's 64 graphs with the
+    # same noise rows (the seeded draw of all 128, which the mesh makes on
+    # row 0): the same shapes, so the same kernels and algorithms.  The
+    # single engine's own b128 call is printed beside it: cuDNN picks its
+    # algorithms by batch size.  Then two model columns (tensor parallel)
+    # against the replicated mesh.
+    vocab, kwargs = vg128_config()
+    model = Sg2ImGenerator(vocab, **kwargs)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    graphs = random_graphs(vocab, MESH_BATCH, np.random.RandomState(3))
+    half = MESH_BATCH // 2
+    cuda0 = ["cuda:0", "cuda:0"]
+    for name, kw in MESH_MODES.items():
+        if name != "f32":
+            kw = dict(kw, compute_dtype=torch.bfloat16)
+        one = InferenceEngine(vocab, kwargs, state, device="cuda", **kw)
+        mesh = InferenceEngine(vocab, kwargs, state,
+                               mesh=make_mesh(2, devices=cuda0), **kw)
+        try:
+            if name == "turbo":
+                one.calibrate(graphs)
+                mesh.calibrate(graphs)
+                if mesh.scales() != one.scales():
+                    fail("the mesh's int8 scales differ from the engine's")
+            noise = one.draw_noise(MESH_BATCH, 7).permute(0, 2, 3, 1)
+            halves = [one.generate(graphs[i:i + half],
+                                   noise=noise[i:i + half])
+                      for i in (0, half)]
+            a = np.concatenate([h[0] for h in halves])
+            oa = torch.cat([h[1]["imgs"] for h in halves])
+            whole = one.generate(graphs, seed=7)[0]
+            mesh.generate(graphs, seed=7)  # warm-up: cuDNN's first calls
+            reset_launches()
+            t0 = time.perf_counter()
+            b, ob = mesh.generate(graphs, seed=7)
+            mesh_ms = 1e3 * (time.perf_counter() - t0)
+            path = read_launches()
+            add_launches(launches, path)
+            check_no_padded_copies(f"the {name} mesh engine")
+            t0 = time.perf_counter()
+            one.generate(graphs, seed=7)
+            one_ms = 1e3 * (time.perf_counter() - t0)
+            u8 = int(np.abs(a.astype(int) - b).max())
+            err = float((oa.float() - ob["imgs"].float()).abs().max())
+            line = (f"[parallel] vg128 mesh (2 data rows on cuda:0) {name} "
+                    f"b{MESH_BATCH}, seeded noise: generate {mesh_ms:.1f} ms "
+                    f"(the single engine {one_ms:.1f}); against the single "
+                    f"engine on each row's {half} graphs with the same noise "
+                    f"max |img| diff {err:.3e}, max u8 diff {u8}, PSNR "
+                    f"{psnr_u8(a, b):.2f} dB; against its b{MESH_BATCH} call "
+                    f"max u8 diff {int(np.abs(whole.astype(int) - b).max())},"
+                    f" PSNR {psnr_u8(whole, b):.2f} dB; launches "
+                    f"{ {k: v for k, v in path.items() if v} }")
+            if path["layout_compose_boxes"] != 2:
+                fail(f"{line}: K1 not launched once per row")
+            if name == "turbo" and (path["conv3x3_s8"] == 0
+                                    or u8 > 2 or psnr_u8(a, b) < 55.0):
+                fail(line)
+            if name == "bf16/packed" and min(path["relayout_s2d"],
+                                              path["relayout_d2s"]) == 0:
+                fail(f"{line}: packed mode without both K3 entries")
+            if name == "f32" and err > MESH_F32_BAR:
+                fail(line)
+            if name.startswith("bf16") and u8 > 1:
+                fail(line)
+            print(line + f"; on {card}")
+            if name == "f32":
+                tp = InferenceEngine(vocab, kwargs, state,
+                                     mesh=make_mesh(2, 2, devices=cuda0 * 2),
+                                     tensor_parallel=True)
+                try:
+                    reset_launches()
+                    c, oc = tp.generate(graphs, seed=7)
+                    path = read_launches()
+                    add_launches(launches, path)
+                    d = (oc["imgs"] - ob["imgs"]).abs()
+                    beyond = int((d > MESH_TP_ATOL + MESH_TP_RTOL
+                                  * ob["imgs"].abs()).sum())
+                    bd = (oc["boxes"] - ob["boxes"]).abs()
+                    bad_boxes = int((bd > MESH_TP_ATOL + MESH_TP_RTOL
+                                     * ob["boxes"].abs()).sum())
+                    u8 = int(np.abs(c.astype(int) - b).max())
+                    print(f"[parallel] vg128 tensor-parallel mesh (2 x 2 on "
+                          f"cuda:0, GCN hidden split) f32 b{MESH_BATCH}: "
+                          f"against the replicated mesh boxes max diff "
+                          f"{float(bd.max()):.3e} ({bad_boxes} beyond rtol "
+                          f"{MESH_TP_RTOL} atol {MESH_TP_ATOL}); images max "
+                          f"diff {float(d.max()):.3e} ({beyond} of "
+                          f"{d.numel()} elements beyond that bar), max u8 "
+                          f"diff {u8}, PSNR {psnr_u8(b, c):.2f} dB; K1 "
+                          f"launches {path['layout_compose_boxes']}; on "
+                          f"{card}")
+                    if (bad_boxes or u8 > MESH_TP_U8
+                            or path["layout_compose_boxes"] != 2):
+                        fail("the tensor-parallel engine disagrees")
+                finally:
+                    tp.close()
+        finally:
+            mesh.close()
+        del one, mesh
+        torch.cuda.empty_cache()
+
+
+SAMPLE_BATCH, SAMPLE_NUM = 24, 50   # sample_images: 3 batches, the last padded
+
+
+def _pngs(d):
+    from PIL import Image
+
+    names = sorted(n for n in os.listdir(d) if n.endswith(".png"))
+    return names, [np.asarray(Image.open(os.path.join(d, n))) for n in names]
+
+
+def phase_tools(torch, card, launches, coco_flags, run_dir, work):
+    """sample_images and checkpoint_tools on the training CLI's outputs;
+    see the module docstring."""
+    from sg2im_tpu_torch.cli import checkpoint_tools, sample_images
+
+    def flag(name):
+        return coco_flags[coco_flags.index(name) + 1]
+
+    data = ["--dataset", "coco",
+            "--coco_image_dir", flag("--coco_val_image_dir"),
+            "--instances_json", flag("--coco_val_instances_json"),
+            "--stuff_json", flag("--coco_val_stuff_json"),
+            "--image_size", "64,64", "--batch_size", str(SAMPLE_BATCH),
+            "--num_samples", str(SAMPLE_NUM), "--save_gt_imgs", "true",
+            "--loader_num_workers", "4", "--device", "cuda"]
+    snaps = sorted(n for n in os.listdir(run_dir) if "snapshot" in n)
+    lst = os.path.join(work, "checkpoints.txt")
+    with open(lst, "w") as f:
+        f.write(run_dir + "\n")
+    ckpt_dir = os.path.join(run_dir, "checkpoint_state")
+    args = sample_images.build_parser().parse_args(data)
+    bundle = sample_images.load_bundle(os.path.join(run_dir, snaps[0]))
+    n_val = len(sample_images._build_dataset(args, bundle["args"],
+                                             bundle["vocab"]))
+    want = min(SAMPLE_NUM, n_val)
+    batches = -(-want // SAMPLE_BATCH)
+    for name, extra, runs in (
+            ("snapshots", ["--checkpoint_list", lst], len(snaps)),
+            ("the Trainer's checkpoint, --model_mode train, ground-truth "
+             "layout", ["--checkpoint", ckpt_dir, "--model_mode", "train",
+                        "--use_gt_boxes", "true", "--use_gt_masks", "true"],
+             1)):
+        out = os.path.join(work, f"samples{runs}")
+        reset_launches()
+        t0 = time.perf_counter()
+        if sample_images.main(data + extra + ["--output_dir", out]) != 0:
+            fail(f"sample_images on {name} failed")
+        wall = time.perf_counter() - t0
+        path = read_launches()
+        add_launches(launches, path)
+        dirs = ([os.path.join(out, d) for d in sorted(os.listdir(out))]
+                if runs > 1 else [out])
+        for d in dirs:
+            names, imgs = _pngs(os.path.join(d, "img"))
+            with np.load(os.path.join(d, "data.npz")) as z:
+                rows = {k: z[k].shape[0] for k in z.files}
+            if (len(names) != want or set(rows.values()) != {want}
+                    or len(_pngs(os.path.join(d, "gt_img"))[0]) != want
+                    or imgs[0].shape != (64, 64, 3)):
+                fail(f"sample_images on {name}: {len(names)} PNGs, npz rows "
+                     f"{rows} in {d}; expected {want}")
+        if path["layout_compose_boxes"] != runs * batches:
+            fail(f"sample_images on {name}: K1 launched "
+                 f"{path['layout_compose_boxes']} times, expected "
+                 f"{runs * batches}")
+        print(f"[tools] sample_images --device cuda on {name}: {len(dirs)} "
+              f"run(s) of {want} images ({n_val} val images pass the "
+              f"filters; {batches} batches of {SAMPLE_BATCH}, the last "
+              f"padded) in {wall:.1f} s; PNG and data.npz rows {want} each; "
+              f"K1 launches {path['layout_compose_boxes']}; on {card}")
+
+    # checkpoint_tools export of the Trainer's checkpoint, through run_model
+    # on the card, against the snapshot of the same step.
+    exported = os.path.join(work, "exported.pt")
+    if checkpoint_tools.main(["export", ckpt_dir, exported]) != 0:
+        fail("checkpoint_tools export failed")
+    graphs = os.path.join(work, "graphs.json")
+    run = ["--scene_graphs_json", graphs, "--noise", "zeros", "--device",
+           "cuda"]
+    a = cli_images(["--checkpoint", exported] + run)
+    b = cli_images(["--checkpoint", os.path.join(run_dir, snaps[-1])] + run)
+    if a.shape != b.shape or not np.array_equal(a, b):
+        fail("run_model on the exported checkpoint differs from the "
+             "snapshot of the same step")
+    print(f"[tools] checkpoint_tools export of the Trainer's checkpoint: "
+          f"run_model --device cuda writes {a.shape} images bit-equal to "
+          f"{snaps[-1]}'s; on {card}")
 
 
 def main() -> int:
@@ -2281,7 +2718,12 @@ def main() -> int:
     phase_vg128(torch, card, launches)
     phase_serve(torch, card, launches)
     in_memory = phase_train(torch, card, launches)
-    phase_train_cli(torch, card, launches, in_memory)
+    with tempfile.TemporaryDirectory() as work:
+        coco_flags, run_dir = phase_train_cli(torch, card, launches,
+                                              in_memory, work)
+        phase_tools(torch, card, launches, coco_flags, run_dir, work)
+        phase_parallel(torch, card, launches, coco_flags)
+    phase_mesh(torch, card, launches)
     layout_src = "sg2im_tpu/ops/pallas/layout_kernel.py"
     conv_replaces = "scripts/proto_pallas_conv.py:122"
     relayout_src = "sg2im_tpu/ops/pallas/relayout_kernel.py"

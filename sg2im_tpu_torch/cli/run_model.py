@@ -29,6 +29,10 @@ def build_parser():
     parser.add_argument("--scene_graphs_json",
                         default="scene_graphs/figure_6_sheep.json")
     parser.add_argument("--output_dir", default="outputs")
+    parser.add_argument("--draw_scene_graphs", type=int, default=0,
+                        help="1: also render each scene graph to "
+                             "sg%%06d.png with GraphViz's dot (warns and "
+                             "skips where dot is missing)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on; 'cuda' fails without "
                              "a GPU rather than running on the CPU")
@@ -55,6 +59,20 @@ def build_parser():
                              "save_calibration (either package); without "
                              "it the engine calibrates on the request "
                              "batch itself")
+    parser.add_argument("--dense_precision", default=None,
+                        choices=["high", "highest"],
+                        help="the JAX CLI's Dense precision; only 'highest' "
+                             "is accepted (and changes nothing): the GCN "
+                             "and heads always run in true float32")
+    parser.add_argument("--noise_impl", default=None,
+                        choices=["threefry", "rbg"],
+                        help="the JAX CLI's PRNG choice; refused (the port "
+                             "draws from a torch.Generator)")
+    parser.add_argument("--deprocess_device", type=int, default=0,
+                        help="accepted so that the JAX CLI's command lines "
+                             "stay valid: the port always deprocesses on "
+                             "the engine's device, bit-equal to the host "
+                             "deprocess, and fetches uint8")
     return parser
 
 
@@ -65,6 +83,16 @@ def main(args=None):
         return 1
     if args.calibration_file and args.quantize != "int8":
         print("ERROR: --calibration_file requires --quantize int8")
+        return 1
+    if args.dense_precision not in (None, "highest"):
+        print(f"ERROR: --dense_precision {args.dense_precision} is refused: "
+              "the GCN and heads run in true float32 (TF32 off), which is "
+              "'highest'")
+        return 1
+    if args.noise_impl:
+        print(f"ERROR: --noise_impl {args.noise_impl} has no torch "
+              "counterpart: the port draws float32 noise from a "
+              "torch.Generator")
         return 1
     os.makedirs(args.output_dir, exist_ok=True)
 
@@ -93,6 +121,17 @@ def main(args=None):
         path = os.path.join(args.output_dir, "img%06d.png" % i)
         Image.fromarray(imgs[i]).save(path)
     print(f"Wrote {len(scene_graphs)} images to {args.output_dir}")
+
+    if args.draw_scene_graphs == 1:
+        from sg2im_tpu_torch.utils.vis import draw_scene_graph, have_graphviz
+
+        if not have_graphviz():
+            print("WARNING: graphviz 'dot' not found; skipping scene graphs")
+        else:
+            for i, sg in enumerate(scene_graphs):
+                sg_img = draw_scene_graph(sg["objects"], sg["relationships"])
+                path = os.path.join(args.output_dir, "sg%06d.png" % i)
+                Image.fromarray(sg_img).save(path)
     return 0
 
 

@@ -131,7 +131,12 @@ def build_parser():
                         "the leading request waits this long for followers "
                         "(0 = serve each request individually)")
     p.add_argument("--data_parallel", default=0, type=int,
-                   help="not ported yet (ROADMAP item 12); use --replicas")
+                   help="serve ONE engine over a mesh of N data rows, one "
+                        "card each (parallel.mesh.make_mesh(n_data=N)): "
+                        "each coalesced batch splits over the cards, each "
+                        "row on its own worker thread; exclusive with "
+                        "--replicas.  With --device cpu the rows share the "
+                        "CPU")
     p.add_argument("--replicas", default=1, type=int,
                    help="run N independent engine replicas, one per card, "
                         "and dispatch whole requests round-robin; each "
@@ -182,11 +187,25 @@ def build_engines(args):
     n_rep = args.replicas
     if n_rep < 1:
         raise SystemExit(f"--replicas must be >= 1, got {n_rep}")
-    if args.data_parallel > 1:
-        raise SystemExit(
-            "--data_parallel is not ported: it comes with ROADMAP item 12 "
-            "(parallel/mesh.py); --replicas serves one engine per card")
     device = torch.device(args.device)
+    if args.data_parallel > 1:
+        from sg2im_tpu_torch.parallel.mesh import make_mesh
+
+        if n_rep > 1:
+            raise SystemExit(
+                "--replicas and --data_parallel are mutually exclusive "
+                "(per-card replicas vs one mesh-sharded engine)")
+        n = args.data_parallel
+        if device.type == "cuda":
+            n_dev = torch.cuda.device_count()
+            if n > n_dev:
+                raise SystemExit(f"--data_parallel {n} exceeds the {n_dev} "
+                                 f"available CUDA device(s)")
+            mesh = make_mesh(n_data=n)
+        else:
+            mesh = make_mesh(n_data=n, devices=[device] * n)
+        return [InferenceEngine.from_torch_checkpoint(
+            args.checkpoint, mesh=mesh, **kw)]
     if n_rep == 1:
         return [InferenceEngine.from_torch_checkpoint(
             args.checkpoint, device=device, **kw)]
@@ -379,6 +398,7 @@ class _Batcher:
 
     def close(self):
         self.worker.shutdown()
+        self.engine.close()
 
     def submit(self, sgs, noise_mode: str, seed: int):
         """Blocks until served.  Returns (imgs, boxes); raises the

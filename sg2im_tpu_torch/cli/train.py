@@ -5,11 +5,29 @@ Example (COCO 64x64 default config, on the card):
     python -m sg2im_tpu_torch.cli.train --dataset coco --batch_size 32
 
 Every flag of the JAX CLI, with its name and default, plus ``--device``
-(default ``cuda``; ``--device cpu`` runs on the host).  ``--multihost`` and
-``--data_parallel`` above 1 wait for the port of ``parallel/mesh.py``
-(ROADMAP item 12) and are refused.  The JAX CLI's compile cache has no
-counterpart (nothing is compiled but the kernels, which build once into
-``build/``).
+(default ``cuda``; ``--device cpu`` runs on the host) and
+``--dist_backend``.  The JAX CLI's compile cache has no counterpart
+(nothing is compiled but the kernels, which build once into ``build/``).
+
+Data parallelism (``parallel/mesh.py``), with ``--batch_size`` the GLOBAL
+batch and each rank loading its own ``batch_size / N`` rows
+(``PaddedLoader(shard=(rank, N))``); the step computes the one-process
+step on the global batch (``train/step.py``):
+
+- ``--data_parallel N``: this command starts the N ranks itself, one
+  process per card (``cuda:0`` .. ``cuda:N-1``), and waits for them;
+- ``--multihost true``: this process is one rank of a group launched
+  outside, by torchrun (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+  ``MASTER_ADDR``, ``MASTER_PORT``) or by the JAX package's variables
+  (``SG2IM_COORDINATOR``, ``SG2IM_NUM_PROCESSES``, ``SG2IM_PROCESS_ID``);
+  its card is ``cuda:LOCAL_RANK``:
+
+      torchrun --nproc_per_node 4 -m sg2im_tpu_torch.cli.train \
+          --multihost true --batch_size 128 ...
+
+``--dist_backend`` is NCCL for CUDA and Gloo for the CPU unless given;
+nothing switches backend when one fails.  Rank 0 alone prints, writes
+``log.jsonl``, checkpoints and snapshots; every rank restores.
 
 A run is deterministic: cuDNN's and PyTorch's deterministic algorithms
 are on for its duration, so a run resumed from a checkpoint takes the same
@@ -28,6 +46,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import sys
 import time
 from collections import defaultdict
 
@@ -137,9 +156,15 @@ def build_parser():
     # Additions of the JAX package
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--data_parallel", default=1, type=int,
-                   help="not ported yet (ROADMAP item 12)")
+                   help="ranks of a data-parallel run this command starts, "
+                        "one process per card (batch_size is the GLOBAL "
+                        "batch)")
     p.add_argument("--multihost", default=False, type=bool_flag,
-                   help="not ported yet (ROADMAP item 12)")
+                   help="join a data-parallel group launched outside "
+                        "(torchrun, or SG2IM_COORDINATOR / "
+                        "SG2IM_NUM_PROCESSES / SG2IM_PROCESS_ID); each "
+                        "rank loads a disjoint shard (batch_size is the "
+                        "GLOBAL batch)")
     p.add_argument("--pad_objects_to", default=None, type=int)
     p.add_argument("--pad_triples_to", default=None, type=int)
     p.add_argument("--profile_dir", default=None,
@@ -169,16 +194,24 @@ def build_parser():
     # The port's own
     p.add_argument("--device", default="cuda",
                    help="torch device of the Trainer ('cuda' fails without "
-                        "a card rather than running on the CPU)")
+                        "a card rather than running on the CPU); a data-"
+                        "parallel rank on a card uses its own, cuda:<rank "
+                        "on its host>")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend of --data_parallel / "
+                        "--multihost runs; default nccl on CUDA, gloo on "
+                        "the CPU")
     return p
 
 
-def make_scalar_logger(config: TrainConfig):
+def make_scalar_logger(config: TrainConfig, process_index: int = 0):
     """Append-mode JSONL scalar stream (``<output_dir>/log.jsonl``) and
     optional TensorBoard event mirror (``--tensorboard_dir``), one record
     per print / eval / timing event; ``t`` identifies the step, so a
-    resumed run continues the same stream."""
-    if not (config.log_jsonl or config.tensorboard_dir):
+    resumed run continues the same stream.  A no-op on every rank but 0
+    (the metrics are already global)."""
+    if process_index != 0 or not (config.log_jsonl
+                                  or config.tensorboard_dir):
         return lambda record: None
     path = os.path.join(config.output_dir, "log.jsonl")
     tb = None
@@ -370,21 +403,105 @@ def _warm_config(config: TrainConfig, mk: dict) -> TrainConfig:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.multihost or args.data_parallel > 1:
-        raise SystemExit(
-            "--multihost and --data_parallel > 1 are not ported: they come "
-            "with ROADMAP item 12 (parallel/mesh.py)")
     config = config_from_args(args)
     check_args(config)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but torch finds no CUDA card "
                          "(pass --device cpu to train on the host)")
+    backend = args.dist_backend or ("nccl" if device.type == "cuda"
+                                    else "gloo")
+    if args.multihost:
+        if args.data_parallel > 1:
+            raise SystemExit("--multihost joins a group launched outside; "
+                             "--data_parallel N starts one: give one")
+        return _multihost(args, config, device, backend)
+    if args.data_parallel > 1:
+        return _launch_ranks(args, argv, config, device, backend)
     with deterministic():
         return _train(args, config, device)
 
 
-def _train(args, config: TrainConfig, device) -> int:
+def _rank_device(device, local_rank: int):
+    """A rank's card: ``cuda`` (no index) becomes cuda:<local rank>."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", local_rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device
+
+
+def _check_divides(config: TrainConfig, world: int):
+    if config.batch_size % world:
+        raise SystemExit(f"--batch_size {config.batch_size} (global) must "
+                         f"divide by the {world} ranks")
+
+
+def _multihost(args, config, device, backend) -> int:
+    """One rank of a group launched outside (torchrun or SG2IM_*)."""
+    import torch.distributed as dist
+
+    from sg2im_tpu_torch.parallel.mesh import init_multihost, local_rank
+
+    rank, world = init_multihost(backend)
+    _check_divides(config, world)
+    device = _rank_device(device, local_rank())
+    print(f"multihost: rank {rank}/{world} on {device} ({backend})"
+          if dist.is_initialized() else f"multihost: one process on "
+          f"{device}")
+    config = dataclasses.replace(config, data_parallel=world)
+    try:
+        with deterministic():
+            return _train(args, config, device, rank, world)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _launch_ranks(args, argv, config, device, backend) -> int:
+    """--data_parallel N: N spawned ranks, one card each, on this host."""
+    from sg2im_tpu_torch.parallel.mesh import free_port, spawn_ranks
+
+    n = args.data_parallel
+    _check_divides(config, n)
+    if device.type == "cuda":
+        if device.index is not None:
+            raise SystemExit("--data_parallel gives rank r the card cuda:r; "
+                             "pass --device cuda, not one card")
+        have = torch.cuda.device_count()
+        if n > have:
+            raise SystemExit(f"--data_parallel {n} exceeds the {have} "
+                             f"available CUDA device(s)")
+    port = free_port()
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    spawn_ranks(_rank_entry, lambda r: (r, n, port, backend, argv), n,
+                timeout_s=None)
+    return 0
+
+
+def _rank_entry(rank, world, port, backend, argv):
+    """A rank started by --data_parallel: join the group, train, exit with
+    the run's code."""
+    import torch.distributed as dist
+
+    from sg2im_tpu_torch.parallel.mesh import init_process_group
+
+    args = build_parser().parse_args(argv)
+    config = dataclasses.replace(config_from_args(args),
+                                 data_parallel=world)
+    device = _rank_device(torch.device(args.device), rank)
+    init_process_group(backend, "127.0.0.1", port, rank, world)
+    try:
+        with deterministic():
+            rc = _train(args, config, device, rank, world)
+    finally:
+        dist.destroy_process_group()
+    if rc:
+        raise SystemExit(rc)
+
+
+def _train(args, config: TrainConfig, device, rank: int = 0,
+           world: int = 1) -> int:
     from sg2im_tpu_torch.ckpt import (
         export_reference_checkpoint,
         load_reference_bundle,
@@ -396,18 +513,22 @@ def _train(args, config: TrainConfig, device) -> int:
     from sg2im_tpu_torch.train.trainer import Trainer
     from sg2im_tpu_torch.utils.timing import profile_trace, timeit
 
+    def say(*a):
+        if rank == 0:
+            print(*a, flush=True)
+
     warm = None
     if config.checkpoint_start_from:
         warm = load_reference_bundle(config.checkpoint_start_from)
         config = _warm_config(config, warm["model_kwargs"])
 
     vocab, train_ds, val_ds = build_datasets(config)
-    print(f"Image decoder: {resolve_decoder(config.decoder)} "
+    say(f"Image decoder: {resolve_decoder(config.decoder)} "
           f"(--decoder {config.decoder})")
     if warm is not None:
         if (len(warm["vocab"]["object_idx_to_name"])
                 != len(vocab["object_idx_to_name"])):
-            print("WARNING: checkpoint vocab size differs from dataset "
+            say("WARNING: checkpoint vocab size differs from dataset "
                   "vocab; using the checkpoint's (weights define it)")
         vocab = warm["vocab"]
     if args.pad_triples_to is None and config.dataset == "vg":
@@ -416,12 +537,15 @@ def _train(args, config: TrainConfig, device) -> int:
         rel_cap = int(train_ds.data["relationship_subjects"].shape[1])
         config = dataclasses.replace(config, pad_triples_to=round_up(
             rel_cap + config.max_objects_per_image + 1, 8))
-    print(f"Training dataset has {len(train_ds)} images")
-    loader_kw = dict(batch_size=config.batch_size,
+    say(f"Training dataset has {len(train_ds)} images")
+    # Each rank loads its own batch_size / world rows of every global
+    # batch, from its own slice of every epoch's permutation.
+    loader_kw = dict(batch_size=config.batch_size // world,
                      O_max=config.pad_objects_to,
                      T_max=config.pad_triples_to,
                      num_workers=config.loader_num_workers,
-                     seed=config.seed)
+                     seed=config.seed,
+                     shard=(rank, world) if world > 1 else None)
     train_loader = PaddedLoader(train_ds, shuffle=True, **loader_kw)
     # The train-set check sweeps a loader of its own: a sweep of the
     # training loader would advance its epoch, and a resumed run could not
@@ -446,7 +570,7 @@ def _train(args, config: TrainConfig, device) -> int:
             repl[name] = {k: sd[k].to(device=device, dtype=have[k].dtype)
                           for k in have}
         state = state.replace(**repl)
-        print(f"Warm-started from {config.checkpoint_start_from} "
+        say(f"Warm-started from {config.checkpoint_start_from} "
               f"({sorted(repl)})")
 
     history = {"losses": defaultdict(list), "losses_ts": [],
@@ -456,12 +580,12 @@ def _train(args, config: TrainConfig, device) -> int:
     # checkpoint dict (train.py:611-661), in the checkpoint's history.npz.
     sample_history = {kind: [] for kind in SAMPLE_KINDS}
     os.makedirs(config.output_dir, exist_ok=True)
-    log_scalars = make_scalar_logger(config)
+    log_scalars = make_scalar_logger(config, rank)
     ckpt_path = os.path.join(config.output_dir,
                              f"{config.checkpoint_name}_state")
     if config.restore_from_checkpoint and os.path.exists(ckpt_path):
         state, meta = trainer.load_checkpoint(ckpt_path)
-        print(f"Restored checkpoint at t={int(state.step)}")
+        say(f"Restored checkpoint at t={int(state.step)}")
         for k, v in (meta.get("extra") or {}).items():
             if k in history:
                 history[k] = defaultdict(list, v) if isinstance(v, dict) \
@@ -482,7 +606,7 @@ def _train(args, config: TrainConfig, device) -> int:
                         break
                     if (not switched and config.eval_mode_after >= 0
                             and t >= config.eval_mode_after):
-                        print("switching to eval mode")
+                        say("switching to eval mode")
                         state = trainer.reset_g_optimizer(state)
                         switched = True
                     with torch.profiler.record_function("train_step"), \
@@ -500,15 +624,15 @@ def _train(args, config: TrainConfig, device) -> int:
                         last_end, waited = now, train_loader.wait_seconds
 
                     if t % config.print_every == 0:
-                        print(f"t = {t} / {config.num_iterations}")
+                        say(f"t = {t} / {config.num_iterations}")
                         if config.timing:
                             for name, ms in trainer.step_breakdown(
                                     state, batch).items():
-                                print(f"  {name}: {ms:.2f}ms")
+                                say(f"  {name}: {ms:.2f}ms")
                         scalars = {}
                         for name, val in sorted(metrics.items()):
                             v = float(val)
-                            print(f"  [{name}]: {v:.4f}")
+                            say(f"  [{name}]: {v:.4f}")
                             history["losses"][name].append(v)
                             scalars[name] = v
                         history["losses_ts"].append(t)
@@ -517,10 +641,11 @@ def _train(args, config: TrainConfig, device) -> int:
                     if t % config.checkpoint_every == 0:
                         _checkpoint(trainer, state, t, config, check_loader,
                                     val_loader, history, sample_history,
-                                    log_scalars, ckpt_path)
+                                    log_scalars, ckpt_path, say)
 
                     if (config.snapshot_every > 0
-                            and t % config.snapshot_every == 0):
+                            and t % config.snapshot_every == 0
+                            and rank == 0):
                         # One naming scheme per run, so that sorted names
                         # are chronological: K names when every snapshot
                         # lands on the 1K grid, exact iterations otherwise.
@@ -532,7 +657,7 @@ def _train(args, config: TrainConfig, device) -> int:
                         export_reference_checkpoint(
                             snap, state.g, config.generator_kwargs(), vocab,
                             args=dataclasses.asdict(config))
-                        print("Saved snapshot to", snap)
+                        say("Saved snapshot to", snap)
             finally:
                 batches.close()
                 host_batches.close()
@@ -541,21 +666,22 @@ def _train(args, config: TrainConfig, device) -> int:
 
 
 def _checkpoint(trainer, state, t, config, check_loader, val_loader,
-                history, sample_history, log_scalars, ckpt_path):
-    """The train and val sweeps with their triptychs, then the save."""
-    print("checking on train")
+                history, sample_history, log_scalars, ckpt_path, say):
+    """The train and val sweeps with their triptychs, then the save (every
+    rank sweeps its rows; rank 0 writes)."""
+    say("checking on train")
     _, t_samples, t_bd, t_iou = trainer.check_model(
         state, iter(check_loader), num_samples=config.num_val_samples,
         return_samples=True)
-    print("train iou:", t_iou)
+    say("train iou:", t_iou)
     history["train_iou"].append(t_iou)
     sample_history["train_samples"].append(t_samples)
     sample_history["train_batch_data"].append(t_bd)
-    print("checking on val")
+    say("checking on val")
     val_losses, v_samples, v_bd, val_iou = trainer.check_model(
         state, iter(val_loader), num_samples=config.num_val_samples,
         return_samples=True)
-    print("val iou:", val_iou)
+    say("val iou:", val_iou)
     history["checkpoint_ts"].append(t)
     history["val_iou"].append(val_iou)
     sample_history["val_samples"].append(v_samples)
@@ -571,7 +697,7 @@ def _checkpoint(trainer, state, t, config, check_loader, val_loader,
                for k, v in history.items()},
         arrays=flatten_samples(sample_history),
         wait=not config.async_checkpoint)
-    print("Saved checkpoint to", ckpt_path)
+    say("Saved checkpoint to", ckpt_path)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,19 @@ exactly as the request alone would.  The values differ between device
 types (CPU and CUDA generators differ) and from the JAX package's threefry
 draws.
 
+Mesh (``InferenceEngine(mesh=make_mesh(...))``, the JAX engine's
+``mesh=``): each data row of the mesh holds a replica of the generator on
+its first device and runs its share of the padded batch (rounded up to a
+multiple of the rows) on its own long-lived worker thread, since cuDNN
+keeps its plans per thread; the rows' outputs are gathered in order on row
+0's first device, which also draws the seeded noise, so a row's noise
+does not depend on the split.  ``tensor_parallel=True`` splits the GCN's
+hidden dimension over each row's model column
+(``parallel.mesh.tp_generator_sharding``).  On the int8 tier the
+activation scales are recorded once, on the whole batch, by row 0, and
+every replica runs at the same scales.  Call :meth:`InferenceEngine.close`
+to end the workers.
+
 int8 turbo tier (``quantize='int8'``): the CRN's high-resolution stages
 run on the int8 conv kernel at calibrated activation scales.  An
 uncalibrated engine calibrates on its first batch (whose images are valid
@@ -36,9 +49,11 @@ package loads into the other.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import threading
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -64,6 +79,7 @@ class _Fp32Scope:
 
 
 _FP32 = _Fp32Scope()
+_OUTPUTS = ("imgs", "boxes", "masks", "rel_scores")
 
 
 @contextlib.contextmanager
@@ -111,16 +127,17 @@ class InferenceEngine:
     CALIBRATION_FORMAT = "sg2im_tpu.int8_calibration.v1"
     _QUANT_KNOBS = ("head", "min_res", "max_res")
 
-    def __init__(self, vocab, model_kwargs, state_dict, *, device="cuda",
+    def __init__(self, vocab, model_kwargs, state_dict, *, device=None,
                  pad_align: int = 8, compute_dtype=None, crn_mode=None,
-                 quantize=None, quant_opts=None, noise_downsample: int = 1):
+                 quantize=None, quant_opts=None, noise_downsample: int = 1,
+                 mesh=None, tensor_parallel: bool = False):
         """
         Args:
           vocab: dict with object/predicate name <-> index maps.
           model_kwargs: ``Sg2ImGenerator`` arguments (without vocab).
           state_dict: generator weights under upstream's names.
           device: where the generator runs ('cuda', 'cuda:1', 'cpu', ...);
-            a CUDA card unless the caller asks for another.
+            a CUDA card unless the caller asks for another (or a mesh).
           pad_align: object and triple slots are padded to a multiple.
           compute_dtype: None (float32) or torch.bfloat16 (bf16 CRN).
           crn_mode: None ('legacy'), 'split', 'split_noise', 'phase' or
@@ -134,9 +151,22 @@ class InferenceEngine:
             (H / f, W / f) and nearest-upsampled on the device (the noise
             becomes constant over f x f tiles).  'zeros' and explicit
             noise are untouched.
+          mesh: a ``parallel.mesh.Mesh``, exclusive with ``device``: one
+            replica per data row (see the module docstring).
+          tensor_parallel: with a mesh, split the GCN hidden dimension
+            over each row's model column.
         """
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if mesh is not None and device is not None:
+            raise ValueError("mesh and device are mutually exclusive")
+        if tensor_parallel and mesh is None:
+            raise ValueError("tensor_parallel requires a mesh")
+        self.mesh = mesh
+        self.device = torch.device(
+            mesh.devices[0][0] if mesh is not None else device or "cuda")
+        devices = ([d for row in mesh.devices for d in row]
+                   if mesh is not None else [self.device])
+        if (any(d.type == "cuda" for d in devices)
+                and not torch.cuda.is_available()):
             # Never run elsewhere than asked.
             raise RuntimeError(f"device {self.device} requested but CUDA is "
                                "not available")
@@ -175,6 +205,32 @@ class InferenceEngine:
             # NHWC convolutions: the layout arrives channels_last anyway.
             model = model.to(memory_format=torch.channels_last)
         self.model = model.to(self.device)
+        self.replicas, self._workers = [self.model], []
+        if mesh is not None:
+            from sg2im_tpu_torch.parallel.mesh import apply_tensor_parallel
+
+            self.replicas += [copy.deepcopy(self.model).to(row[0])
+                              for row in mesh.devices[1:]]
+            if tensor_parallel:
+                for i, rep in enumerate(self.replicas):
+                    apply_tensor_parallel(rep, mesh, i)
+            self._workers = [ThreadPoolExecutor(
+                1, thread_name_prefix=f"sg2im-mesh-row{i}")
+                for i in range(len(mesh.devices))]
+
+    def close(self):
+        """End the mesh rows' worker threads (a no-op without a mesh)."""
+        for w in self._workers:
+            w.shutdown()
+
+    def pad_rows(self, n: int) -> int:
+        """The padded batch of ``n`` graphs: the power-of-two bucket,
+        rounded up to a multiple of the mesh's data rows."""
+        n_pad = pad_bucket(n)
+        if self.mesh is not None:
+            d = self.mesh.shape["data"]
+            n_pad = -(-n_pad // d) * d
+        return n_pad
 
     @classmethod
     def from_torch_checkpoint(cls, path, **kw) -> "InferenceEngine":
@@ -378,20 +434,58 @@ class InferenceEngine:
         """
         N = batch.objs.shape[0]
         layout_noise = self._noise(noise, seed, N)
-
-        def dev(a, dtype):
-            return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
-
         calibrating = self._quantized and (_calibrate or not self.calibrated)
-        with torch.inference_mode(), full_fp32(), (
-                self._calibrating() if calibrating
-                else contextlib.nullcontext()):
-            imgs, boxes, masks, rel_scores = self.model(
+        if self.mesh is None or calibrating:
+            # The int8 tier records its scales on the whole batch, on row
+            # 0 of a mesh (whose replicas then take them).
+            if self.mesh is None:
+                out = self._whole_batch(batch, layout_noise, calibrating)
+            else:
+                out = self._workers[0].submit(
+                    self._whole_batch, batch, layout_noise,
+                    calibrating).result()
+            return dict(zip(_OUTPUTS, out))
+        self._share_scales()
+        n = N // len(self.replicas)
+        futures = [w.submit(self._forward, rep, row[0], batch,
+                            slice(i * n, (i + 1) * n), layout_noise)
+                   for i, (w, rep, row) in enumerate(zip(
+                       self._workers, self.replicas, self.mesh.devices))]
+        parts = [f.result() for f in futures]
+        out = [None if parts[0][k] is None else torch.cat(
+            [p[k].to(self.device) for p in parts]) for k in range(4)]
+        return dict(zip(_OUTPUTS, out))
+
+    def _whole_batch(self, batch, layout_noise, calibrating):
+        with (self._calibrating() if calibrating
+              else contextlib.nullcontext()):
+            return self._forward(self.model, self.device, batch,
+                                 slice(None), layout_noise)
+
+    @staticmethod
+    def _forward(model, device, batch, rows: slice, layout_noise):
+        """``model`` on ``device`` over ``rows`` of ``batch`` -> (imgs,
+        boxes, masks, rel_scores)."""
+        def dev(a, dtype):
+            return torch.as_tensor(np.asarray(a)[rows]).to(device, dtype)
+
+        noise = (None if layout_noise is None
+                 else layout_noise[rows].to(device))
+        with torch.inference_mode(), full_fp32():
+            return model(
                 dev(batch.objs, torch.long), dev(batch.triples, torch.long),
                 dev(batch.obj_mask, torch.float32),
-                dev(batch.triple_mask, torch.float32), layout_noise)
-        return {"imgs": imgs, "boxes": boxes, "masks": masks,
-                "rel_scores": rel_scores}
+                dev(batch.triple_mask, torch.float32), noise)
+
+    def _share_scales(self):
+        """Give every mesh replica row 0's int8 activation scales."""
+        if not self._quantized:
+            return
+        values = self._act_scales.values
+        for rep, row in zip(self.replicas[1:], self.mesh.devices[1:]):
+            rep.refinement_net.act_scales.values = (
+                None if values is None
+                else {k: v.to(row[0]) for k, v in values.items()})
 
     def warmup(self, batch_sizes=(1,), scene_graph=None, seed: int = 0):
         """Run each serving path once per graph-count bucket, so that the
@@ -422,7 +516,7 @@ class InferenceEngine:
                 self.generate(graphs, noise=noise, seed=seed)
             batch = encode_scene_graphs(graphs, self.vocab,
                                         align=self.pad_align)
-            shapes.append((pad_bucket(n), batch.objs.shape[1],
+            shapes.append((self.pad_rows(n), batch.objs.shape[1],
                            batch.triples.shape[1]))
         if not keep_scales:
             self._act_scales.values = None  # the first real batch calibrates
@@ -444,7 +538,7 @@ class InferenceEngine:
         n_real = len(scene_graphs)
         batch = encode_scene_graphs(scene_graphs, self.vocab,
                                     align=self.pad_align)
-        n_pad = pad_bucket(n_real)
+        n_pad = self.pad_rows(n_real)
         if n_pad > n_real:
             batch = batch.pad_rows(n_pad)
         out = self.generate_batch(batch, noise=noise, seed=seed,

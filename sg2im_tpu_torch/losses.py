@@ -4,7 +4,8 @@ upstream ``sg2im/losses.py`` and ``scripts/train.py:387-412``).
 Every loss takes an optional validity ``mask`` over its leading axes, so
 that padded graph batches give the means upstream's ragged batches give.
 The auxiliary-classifier cross-entropy lives here, not in the
-discriminator.
+discriminator.  Every mean goes through :func:`masked_mean`, so that in a
+data-parallel step each is over the global batch.
 """
 
 from __future__ import annotations
@@ -12,17 +13,30 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from sg2im_tpu_torch.parallel import collectives
+
 
 def masked_mean(x, mask=None):
     """Mean over every element, or over the elements whose mask (over x's
     leading axes, trailing axes averaged too) is 1.  Numerator and
     denominator count the same broadcast elements; masked-out NaN or inf
-    entries are selected away, not multiplied by 0."""
+    entries are selected away, not multiplied by 0.
+
+    Inside ``parallel.collectives.global_batch(group)`` the denominator is
+    the global count, over every rank's rows, and the result is this
+    rank's share of the global mean: the ranks' results sum to it, and so
+    do their gradients.  Every rank holds the same number of rows."""
+    pg = collectives.group()
     if mask is None:
-        return x.mean()
+        if pg is None:
+            return x.mean()
+        return x.sum() / (x.numel() * collectives.world())
     mask = mask.to(x.dtype)
     m = mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim)).expand(x.shape)
-    denom = m.sum().clamp_min(1.0)
+    denom = m.sum()
+    if pg is not None:
+        denom = collectives.all_reduce(denom.detach().clone(), pg)
+    denom = denom.clamp_min(1.0)
     return (torch.where(m > 0, x, torch.zeros_like(x)) * m).sum() / denom
 
 
@@ -75,7 +89,7 @@ def get_gan_losses(gan_type: str):
 
 
 def l1_loss(pred, target):
-    return (pred - target).abs().mean()
+    return masked_mean((pred - target).abs())
 
 
 def mse_loss(pred, target, mask=None):
@@ -127,4 +141,4 @@ def gradient_penalty(x_real, x_fake, f, gamma: float = 1.0, eps=None,
         s = s.reshape(N, -1).mean(dim=1)
     (grad,) = torch.autograd.grad(s.sum(), x_hat, create_graph=True)
     norm = torch.sqrt((grad.reshape(N, -1) ** 2).sum(dim=1) + 1e-12)
-    return (((norm - gamma) ** 2) / (gamma * gamma)).mean()
+    return masked_mean(((norm - gamma) ** 2) / (gamma * gamma))

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sg2im_tpu_torch.parallel import collectives
+
 
 def parse_activation(name: str) -> tuple[str, float]:
     """Activation of the CNN/CRN paths, parsed as upstream's
@@ -63,7 +65,9 @@ class BatchNorm(nn.Module):
     and the unbiased variance, written into the buffers during the call.
     ``mask`` (the leading axes of x: (N,) for NCHW, (N, T) for rows)
     weights each sample's share of the statistics, so padded slots stay out
-    of them: n = max(sum(mask) * spatial, 1).
+    of them: n = max(sum(mask) * spatial, 1).  Inside
+    ``parallel.collectives.global_batch(group)`` the statistics are those
+    of the global batch, over every rank of the group.
 
     State: ``weight``, ``bias``, ``running_mean``, ``running_var``, the
     upstream names; a ``num_batches_tracked`` entry in a loaded state dict
@@ -111,7 +115,10 @@ class BatchNorm(nn.Module):
             dims, cshape = (0, 1, 3, 4), (1, 1, C, 1, 1)
         else:
             xs, dims, cshape = x, tuple(range(x.ndim - 1)), (C,)
-        if mask is None:
+        if collectives.group() is not None:
+            mean, var, n = _global_moments(xs, dims, cshape, mask, C)
+            bessel = n / (n - 1.0).clamp_min(1.0)
+        elif mask is None:
             var, mean = torch.var_mean(xs, dim=dims, correction=0,
                                        keepdim=True)
             n = xs.numel() // C
@@ -133,6 +140,33 @@ class BatchNorm(nn.Module):
         y = (xs - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight.reshape(cshape) + self.bias.reshape(cshape)
         return y.reshape(x.shape)
+
+
+def _global_moments(xs, dims, cshape, mask, C):
+    """Mean, biased variance and count of ``xs`` over ``dims`` and over
+    every rank of the data-parallel group (``parallel.collectives``): the
+    global count and sum in one all-reduce, then the global sum of squared
+    deviations from the global mean in a second, two-pass as the one-rank
+    statistics are.  Both sums carry gradients back across the ranks."""
+    if mask is None:
+        w = None
+        s = xs.sum(dim=dims)
+        n = torch.full((1,), float(xs.numel() // C), dtype=xs.dtype,
+                       device=xs.device)
+    else:
+        w = mask.to(xs.dtype).reshape(
+            mask.shape + (1,) * (xs.ndim - mask.ndim))
+        spatial = math.prod(xs.shape[mask.ndim:]) // C
+        s = (xs * w).sum(dim=dims)
+        n = (mask.to(xs.dtype).sum() * spatial).reshape(1)
+    tot = collectives.global_sum(torch.cat([s.reshape(C), n]))
+    n = tot[C].clamp_min(1.0)
+    mean = (tot[:C] / n).reshape(cshape)
+    d = (xs - mean) ** 2
+    if w is not None:
+        d = d * w
+    var = collectives.global_sum(d.sum(dim=dims)).reshape(cshape) / n
+    return mean, var, n
 
 
 def run_masked(layers, x, mask=None):

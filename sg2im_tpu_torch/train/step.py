@@ -46,9 +46,11 @@ discriminator), so that a profiler can put an event on the stream there.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from sg2im_tpu_torch import losses as L
+from sg2im_tpu_torch.parallel import collectives
 from sg2im_tpu_torch.train.state import AdamState, TrainState
 
 
@@ -202,9 +204,35 @@ def _grads(total, leaves: dict) -> dict:
             for (k, p), g in zip(leaves.items(), gs)}
 
 
-def make_train_step(generator, d_obj, d_img, config, optimizers=None):
+def _reduce(pg, grads: dict, losses: dict):
+    """(grads, losses) summed across the ranks of ``pg`` in one all-reduce
+    of their concatenation: the gradients of the global loss, and the
+    global losses, the same on every rank.  Without a group, the inputs
+    as they are."""
+    if pg is None:
+        return grads, losses
+    names, lnames = list(grads), list(losses)
+    out = collectives.sum_flat([grads[k] for k in names]
+                               + [losses[k] for k in lnames], pg)
+    return (dict(zip(names, out[:len(names)])),
+            dict(zip(lnames, out[len(names):])))
+
+
+def make_train_step(generator, d_obj, d_img, config, optimizers=None,
+                    group=None):
     """The train step of ``config`` over the port's modules (discriminators
     may be None).
+
+    ``group``: a ``torch.distributed`` process group, for one rank of a
+    data-parallel step; ``batch`` (and ``noise``) then hold this rank's
+    rows of the global batch, every rank holding as many.  The step
+    computes what the one-process step computes on the global batch
+    (``sg2im_tpu/parallel/mesh.py``'s GSPMD semantics): BatchNorm
+    statistics and loss means over the global batch, the layout noise of
+    the global batch drawn from the replicated generator state (this rank
+    keeps its rows), each model's gradients and losses summed across the
+    ranks by one all-reduce before the NaN guard, so that every rank takes
+    the same branch and applies the same update.
 
     Returns ``train_step(state, batch, eval_mode=False, noise=None) ->
     (new state, metrics)``.  ``batch`` holds tensors on the modules'
@@ -222,11 +250,17 @@ def make_train_step(generator, d_obj, d_img, config, optimizers=None):
     d_clip = config.d_clip
 
     def draw_noise(state, N, device):
+        """The global batch's noise from ``state.noise_rng``; this rank's
+        N rows of it."""
         H, W = config.image_size
         gen = torch.Generator(device=device)
         gen.set_state(state.noise_rng)
-        noise = torch.randn((N, config.layout_noise_dim, H, W),
+        world = 1 if group is None else dist.get_world_size(group)
+        noise = torch.randn((N * world, config.layout_noise_dim, H, W),
                             generator=gen, device=device)
+        if world > 1:
+            r = dist.get_rank(group)
+            noise = noise[r * N:(r + 1) * N]
         return noise, gen.get_state()
 
     def generator_losses(g_params, g_bufs, d_obj_sd, d_img_sd, batch, noise,
@@ -300,6 +334,9 @@ def make_train_step(generator, d_obj, d_img, config, optimizers=None):
         total, losses = losses_fn(leaves, run_bufs, imgs_fake, batch)
         mark(name + "_forward")
         grads = _grads(total, leaves)
+        grads, losses = _reduce(group, grads, {**losses,
+                                               name + "_total": total})
+        total = losses.pop(name + "_total")
         mark(name + "_backward")
         d_good = good & all_finite(grads.values())
         updates, opt = opts[name].update(grads, getattr(state, name + "_opt"),
@@ -318,6 +355,10 @@ def make_train_step(generator, d_obj, d_img, config, optimizers=None):
 
     def train_step(state: TrainState, batch: dict, eval_mode: bool = False,
                    noise=None):
+        with collectives.global_batch(group):
+            return _train_step(state, batch, eval_mode, noise)
+
+    def _train_step(state, batch, eval_mode, noise):
         N = batch["imgs"].shape[0]
         device = batch["imgs"].device
         noise_rng = state.noise_rng
@@ -332,8 +373,10 @@ def make_train_step(generator, d_obj, d_img, config, optimizers=None):
             eval_mode)
         mark("g_forward")
         grads = _grads(total, leaves)
+        grads, losses = _reduce(group, grads, losses)
         mark("g_backward")
-        good = torch.isfinite(total.detach()) & all_finite(grads.values())
+        good = (torch.isfinite(losses["total_loss"].detach())
+                & all_finite(grads.values()))
         metrics = {k: v.detach() for k, v in losses.items()}
 
         updates, g_opt = opts["g"].update(grads, state.g_opt, good)
@@ -361,7 +404,8 @@ def make_train_step(generator, d_obj, d_img, config, optimizers=None):
     # ``phase_fns``).  Each runs one section of the step on the inputs it
     # is given, on copies of the BatchNorm buffers, and returns a fence:
     # a 0-dim tensor that depends on all of the section's output, the
-    # gradients' global norm included.  None changes the state.
+    # gradients' global norm included.  None changes the state.  They
+    # time this rank's work alone: no collective runs in them.
     def phase_g_forward(state, batch, noise):
         """G's train-mode forward -> (the fakes, their sum)."""
         params, bufs = G.split(state.g)

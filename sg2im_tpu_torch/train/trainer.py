@@ -10,6 +10,16 @@ tensors in the port's (imgs (N, 3, H, W)), as ``data.loader.
 prefetch_to_device`` puts them on the card; :meth:`Trainer.to_device`
 stages either, and copies nothing that is already on the device in the
 step's types.
+
+Data parallelism: in a process that has joined a ``torch.distributed``
+group (``parallel.mesh.init_multihost``, or the train CLI's
+``--data_parallel N``), the Trainer is one rank of a data-parallel run
+whose world size must be ``config.data_parallel``.  Each rank hands
+:meth:`Trainer.step` and :meth:`Trainer.check_model` its own rows of the
+global batch (``PaddedLoader(shard=(rank, world))`` with
+``batch_size / world`` rows); the step computes the one-process step on
+the global batch (``train.step.make_train_step``) and the validation sweep
+the global figures.  Rank 0 alone writes checkpoints; every rank restores.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sg2im_tpu_torch.data.transforms import imagenet_deprocess_batch_torch
 from sg2im_tpu_torch.inference import full_fp32
@@ -27,6 +38,8 @@ from sg2im_tpu_torch.models import (
     Sg2ImGenerator,
 )
 from sg2im_tpu_torch.nn.layers import init_weights
+from sg2im_tpu_torch.parallel import collectives
+from sg2im_tpu_torch.parallel.mesh import replicate_state
 from sg2im_tpu_torch.train.config import TrainConfig
 from sg2im_tpu_torch.train.state import TrainState
 from sg2im_tpu_torch.train.step import (
@@ -41,10 +54,25 @@ _INT_KEYS = ("objs", "triples")
 
 class Trainer:
     def __init__(self, config: TrainConfig, vocab, device="cuda"):
-        if config.data_parallel > 1:
-            raise NotImplementedError(
-                "data_parallel > 1 needs the port of parallel/mesh.py "
-                "(ROADMAP Queue 1, item 12)")
+        self.group, self.rank, self.world = None, 0, 1
+        if dist.is_available() and dist.is_initialized():
+            self.group = dist.group.WORLD
+            self.rank, self.world = dist.get_rank(), dist.get_world_size()
+            if self.world != config.data_parallel:
+                raise ValueError(
+                    f"config.data_parallel={config.data_parallel}, but this "
+                    f"process is one of {self.world} ranks of its "
+                    "torch.distributed group: set data_parallel to the "
+                    "world size")
+        elif config.data_parallel > 1:
+            raise RuntimeError(
+                f"data_parallel={config.data_parallel} needs a "
+                "torch.distributed group of that many ranks, one per card: "
+                "launch `python -m sg2im_tpu_torch.cli.train "
+                "--data_parallel N` (it starts the ranks), or `torchrun "
+                "--nproc_per_node N -m sg2im_tpu_torch.cli.train "
+                "--multihost true`, or call sg2im_tpu_torch.parallel.mesh."
+                "init_multihost() in every rank before the Trainer")
         self.config = config
         self.vocab = vocab
         self.device = torch.device(device)
@@ -58,7 +86,8 @@ class Trainer:
                       if config.use_img_discriminator else None)
         self.optimizers = make_optimizers(config)
         self.train_step = make_train_step(self.generator, self.d_obj,
-                                          self.d_img, config, self.optimizers)
+                                          self.d_img, config, self.optimizers,
+                                          group=self.group)
         # Host mirror of state.step, read from the device once per
         # (re)start: it selects the eval-mode regime without a sync per
         # step.
@@ -113,7 +142,8 @@ class Trainer:
         """Fresh weights from one CPU ``torch.Generator`` seeded with
         ``seed`` (default config.seed), G then D_obj then D_img, with
         upstream's distributions; fresh Adams; the layout-noise generator
-        on the device seeded with ``seed``."""
+        on the device seeded with ``seed``.  In a data-parallel run every
+        rank then holds rank 0's state (one broadcast per dtype)."""
         seed = self.config.seed if seed is None else seed
         gen = torch.Generator().manual_seed(seed)
         fields = {"step": torch.zeros((), dtype=torch.int32,
@@ -130,7 +160,10 @@ class Trainer:
             fields[name + "_opt"] = self.optimizers[name].init(
                 {k: sd[k] for k, _ in module.named_parameters()})
         self._host_step = 0
-        return TrainState(**fields)
+        state = TrainState(**fields)
+        if self.group is not None:
+            state = replicate_state(state, self.group)
+        return state
 
     def modules(self) -> dict:
         return {"g": self.generator, "d_obj": self.d_obj,
@@ -219,7 +252,13 @@ class Trainer:
                     return_samples: bool = False):
         """Validation sweep in eval mode: (mean losses, mean box IoU).  The
         layout noise of each batch comes from a generator on the device
-        seeded with the state's step.
+        seeded with the state's step.  In a data-parallel run each rank
+        sweeps its own rows of every batch (as many batches on every
+        rank), and the figures are the global batches': the loss means
+        over the global batch, the sums of losses, IoU and objects summed
+        across the ranks; ``num_samples`` counts global rows, and the
+        samples are not gathered ({} and {}, as the JAX package's
+        multi-process sweep gives).
 
         With ``return_samples=True``: (mean losses, samples, batch_data,
         mean IoU), the JAX package's tuple.  ``samples`` is the last
@@ -237,11 +276,15 @@ class Trainer:
             if num_samples is not None and seen >= num_samples:
                 break
             b = self.to_device(batch)
-            N = b["imgs"].shape[0]
+            N = b["imgs"].shape[0] * self.world
             noise = self._layout_noise(0, N, gen)
-            imgs, boxes, masks, rel_scores = self._generate(
-                state, b, noise, b["boxes"], b.get("masks"))
-            losses = model_losses(c, b, imgs, boxes, masks, rel_scores)
+            if noise is not None and self.world > 1:
+                n = N // self.world
+                noise = noise[self.rank * n:(self.rank + 1) * n]
+            with collectives.global_batch(self.group):
+                imgs, boxes, masks, rel_scores = self._generate(
+                    state, b, noise, b["boxes"], b.get("masks"))
+                losses = model_losses(c, b, imgs, boxes, masks, rel_scores)
             losses["total_loss"] = sum(losses.values())
             for k, v in losses.items():
                 tot_losses[k] = tot_losses.get(k, 0.0) + float(v) * N
@@ -249,11 +292,19 @@ class Trainer:
             tot_objs += float(b["obj_mask"].sum())
             seen += N
             last = (b, boxes, masks)
+        if self.group is not None:
+            names = sorted(tot_losses)
+            sums = collectives.all_reduce(torch.tensor(
+                [tot_losses[k] for k in names] + [tot_iou, tot_objs],
+                dtype=torch.float64, device=self.device), self.group)
+            sums = sums.tolist()
+            tot_losses = dict(zip(names, sums[:len(names)]))
+            tot_iou, tot_objs = sums[len(names):]
         mean_losses = {k: v / max(seen, 1) for k, v in tot_losses.items()}
         avg_iou = tot_iou / max(tot_objs, 1.0)
         if not return_samples:
             return mean_losses, avg_iou
-        if last is None:
+        if last is None or self.world > 1:
             return mean_losses, {}, {}, avg_iou
         b, boxes_pred, masks_pred = last
         samples = {k: imagenet_deprocess_batch_torch(
@@ -301,10 +352,19 @@ class Trainer:
 
     def save_checkpoint(self, state: TrainState, path: str, extra=None,
                         arrays=None, wait: bool = True):
+        """Write ``state`` under ``path`` (rank 0 alone in a data-parallel
+        run, where every rank calls this: with ``wait`` no rank returns
+        before the files are written)."""
         from sg2im_tpu_torch.ckpt.store import save_checkpoint
 
-        save_checkpoint(path, state, config=self.config, vocab=self.vocab,
-                        extra=extra, arrays=arrays, wait=wait)
+        if self.rank == 0:
+            save_checkpoint(path, state, config=self.config,
+                            vocab=self.vocab, extra=extra, arrays=arrays,
+                            wait=wait)
+        if self.group is not None and wait:
+            # A barrier of the collectives this package uses.
+            collectives.all_reduce(torch.zeros(1, device=self.device),
+                                   self.group)
 
     def load_checkpoint(self, path: str):
         """-> (state, meta); tensors land on the trainer's device."""

@@ -6,7 +6,7 @@ widths) on ``tests/test_data.py``'s synthetic COCO fixture, with
 ``--device cpu``:
 
 - the parser (every JAX flag, its default, choices and type, plus
-  ``--device``) and ``config_from_args``;
+  ``--device`` and ``--dist_backend``) and ``config_from_args``;
 - a run checkpointed mid-epoch and resumed gives the losses of a run that
   was never stopped, bit for bit (``PaddedLoader.start_at``); its
   snapshot loads through the JAX package's ``convert_checkpoint`` with the
@@ -69,7 +69,7 @@ def _actions(parser):
 def test_parser_has_every_jax_flag_with_its_default():
     port = _actions(cli.build_parser())
     ref = _actions(jax_cli.build_parser())
-    assert set(port) - set(ref) == {"device"}
+    assert set(port) - set(ref) == {"device", "dist_backend"}
     assert set(ref) <= set(port)
     for dest, a in ref.items():
         b = port[dest]
@@ -96,10 +96,16 @@ def test_config_from_args_matches_jax(argv):
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
 
 
-@pytest.mark.parametrize("argv", [["--multihost", "true"],
-                                  ["--data_parallel", "2"]])
+@pytest.mark.parametrize("argv", [["--multihost", "true",
+                                   "--data_parallel", "2"],
+                                  ["--data_parallel", "2",
+                                   "--batch_size", "3"]])
 def test_multihost_and_data_parallel_name_item_12(argv):
-    with pytest.raises(SystemExit, match="item 12"):
+    """The launch refusals of the data-parallel flags (the test's name is
+    older than them): --multihost joins a group, --data_parallel starts
+    one, and the global batch must split over the ranks."""
+    match = "give one" if argv[0] == "--multihost" else "must divide"
+    with pytest.raises(SystemExit, match=match):
         cli.main(argv + ["--device", "cpu"])
 
 

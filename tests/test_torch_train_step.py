@@ -524,6 +524,7 @@ def test_check_model_matches_jax():
 
 
 def test_trainer_refuses_data_parallel():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """data_parallel > 1 without a process group of that size."""
+    with pytest.raises(RuntimeError, match="torch.distributed group"):
         Trainer(TrainConfig(**dict(TINY, data_parallel=2)), VOCAB,
                 device="cpu")
