@@ -108,14 +108,27 @@ with a non-zero exit code:
    turbo tier's K4 and 'packed''s K3 launched; and the tensor-parallel
    mesh (2 x 2, the GCN hidden dimension split) against the replicated
    one: boxes at tests/test_parallel.py's rtol / atol, images within
-   MESH_TP_U8.
+   MESH_TP_U8;
+14. proofs: the training proofs through sg2im_tpu_torch.tools on their
+   learnable disk dataset (2048 64 px JPEGs, each category a colour): K1's
+   forward and Function gradients at the proofs' widths (D 64 and 128) on
+   a batch of that data; train_proof in f32 / 'legacy' for PROOF_ITERS
+   steps at b32 with 8 loader workers, L1 falling; a second f32 run of
+   PROOF_REPEAT_ITERS steps whose L1 trace is bit-identical to the
+   first's on their common prefix; bf16 / 'split' for PROOF_ITERS steps,
+   L1 falling; trained_fidelity for FIDELITY_ITERS steps, its export
+   through verify_pretrained --device cuda against the CPU engine's
+   goldens at >= 40 dB; loader_bench at the f32 proof's steady rate.
+   K1 launched exactly once per step and per final check_model and gate
+   forward, and no other kernel.  Their output goes to
+   build/chip_smoke/proof_*.log.
 
 Each path (the turbo CLI, the vg128 requests of f32 and bf16/split, the
 turbo requests, the requests of each further CRN mode, the HTTP traffic of
 each server, the train steps of each mode, the uninterrupted CLI run of
 each mode, each sample_images run, the data-parallel ranks (counted in
 their processes), the world-1 NCCL steps and CLI run, each mesh engine's
-generate) runs with the kernels' launch
+generate, each proof tool's run) runs with the kernels' launch
 counts set to 0 just before it and read just after; the
 conv wrappers' padded input copies, counted the same way, must stay 0 on
 every path and in every timed batch-128 forward.
@@ -1575,25 +1588,23 @@ def check_steps_finite(name, metrics):
         fail(f"train {name}: {skipped} skipped steps, totals {totals}")
 
 
-def check_train_gradients(torch, batch):
-    """K1 at the training shape through its Function, with f32 and bf16
-    output (the f32 and the bf16/split steps): the forward against the
-    plain compose (KERNEL_BAR abs in f32, one rounding in bf16), and the
-    gradients against autograd of the plain compose (1e-5 of max |grad|).
-    The backward is the plain recompute on both sides, so the gradients
-    check the Function's wiring (saved inputs, casts, which inputs get a
-    gradient), not a kernel.  Then K3's backward bit-equal to autograd of
-    the plain relayout at the packed CRN's b32 shapes, with a
-    non-channels_last incoming gradient (the copy the wrapper counts)."""
+def check_k1_function(torch, boxes, masks, obj_mask, D, where):
+    """K1 through its Function at a training shape (boxes, masks of the
+    batch, vecs of width D), with f32 and bf16 output (the f32 and the
+    bf16/split steps): the forward against the plain compose (KERNEL_BAR
+    abs in f32, one rounding in bf16), and the gradients against autograd
+    of the plain compose (1e-5 of max |grad|).  The backward is the plain
+    recompute on both sides, so the gradients check the Function's wiring
+    (saved inputs, casts, which inputs get a gradient), not a kernel.
+    -> the f32 forward's max abs error."""
     from sg2im_tpu_torch.ops import layout_kernel as lk
-    from sg2im_tpu_torch.ops import relayout as rl
 
     g = torch.Generator(device="cuda").manual_seed(4)
-    boxes, masks = batch["boxes"], batch["masks"]
     N, O = boxes.shape[:2]
-    vecs = torch.randn((N, O, 128), device="cuda", generator=g)
-    vecs = vecs * batch["obj_mask"][..., None]
-    gout = torch.randn((N, 64, 64, 128), device="cuda", generator=g)
+    M = masks.shape[-1]
+    vecs = torch.randn((N, O, D), device="cuda", generator=g)
+    vecs = vecs * obj_mask[..., None]
+    gout = torch.randn((N, 64, 64, D), device="cuda", generator=g)
     for dt in (torch.float32, torch.bfloat16):
         grads = {}
         for name, fn in (
@@ -1611,25 +1622,50 @@ def check_train_gradients(torch, batch):
         want = lk.layout_compose_ref(boxes, masks, vecs, 64, 64)
         diff = (got - want).abs()
         fwd_err = diff.max().item()
+        if dt == torch.float32:
+            f32_err = fwd_err
         ok = (fwd_err <= KERNEL_BAR if dt == torch.float32 else
               bool((diff <= want.abs() * 2.0 ** -8 + KERNEL_BAR).all()))
         tag = "f32" if dt == torch.float32 else "bf16"
-        line = [f"[train] K1 at b{N} O{O} M16 64x64 D128, {tag} out: forward"
-                f" vs the plain compose {fwd_err:.3e} (max |out| "
+        line = [f"{where} K1 at b{N} O{O} M{M} 64x64 D{D}, {tag} out: "
+                f"forward vs the plain compose {fwd_err:.3e} (max |out| "
                 f"{want.abs().max().item():.2f}); Function gradients vs "
                 f"autograd of the plain compose:"]
         if not ok:
-            fail(f"K1's {tag} forward at the training shape disagrees with "
-                 f"the plain compose: {fwd_err:.3e}")
+            fail(f"K1's {tag} forward at b{N} D{D} disagrees with the plain "
+                 f"compose: {fwd_err:.3e}")
         for i, what in enumerate(("boxes", "masks", "vecs")):
             a, b = grads["kernel"][i], grads["plain"][i]
-            err = (a - b).abs().max().item()
-            peak = b.abs().max().item()
-            line.append(f"{what} {err:.3e} of max {peak:.3e};")
+            # An empty slot's zero box gives a NaN box gradient on both
+            # sides (the plain compose divides by its zero size).
+            nan = torch.isnan(b)
+            if not torch.equal(torch.isnan(a), nan):
+                fail(f"K1 {what} gradient ({tag} out, D{D}) is NaN "
+                     f"elsewhere than the plain compose's")
+            err = (a - b)[~nan].abs().max().item()
+            peak = b[~nan].abs().max().item()
+            n_nan = int(nan.sum())
+            line.append(f"{what} {err:.3e} of max {peak:.3e}"
+                        + (f" ({n_nan} NaN on both sides)" if n_nan else "")
+                        + ";")
             if not err <= 1e-5 * max(peak, 1.0):
-                fail(f"K1 {what} gradient ({tag} out) off by {err:.3e} "
-                     f"(max {peak:.3e})")
+                fail(f"K1 {what} gradient ({tag} out, D{D}) off by "
+                     f"{err:.3e} (max {peak:.3e})")
         print(" ".join(line))
+    return f32_err
+
+
+def check_train_gradients(torch, batch):
+    """K1 at the training shape (:func:`check_k1_function`, D 128), then
+    K3's backward bit-equal to autograd of the plain relayout at the
+    packed CRN's b32 shapes, with a non-channels_last incoming gradient
+    (the copy the wrapper counts)."""
+    from sg2im_tpu_torch.ops import relayout as rl
+
+    check_k1_function(torch, batch["boxes"], batch["masks"],
+                      batch["obj_mask"], 128, "[train]")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    N = batch["boxes"].shape[0]
     cases = {"s2d layout 64x64 C160": (rl.space_to_depth,
                                        rl.space_to_depth_ref,
                                        (N, 160, 64, 64)),
@@ -2701,6 +2737,163 @@ def phase_tools(torch, card, launches, coco_flags, run_dir, work):
           f"{snaps[-1]}'s; on {card}")
 
 
+# The training proofs (sg2im_tpu_torch.tools) on their learnable disk
+# dataset, at the tools' defaults but for these iteration counts.
+PROOF_ITERS = 500          # each train_proof run (the tool's default)
+PROOF_REPEAT_ITERS = 200   # the second f32 run: a prefix of the first
+FIDELITY_ITERS = 1000      # trained_fidelity (the tool's default is 3000)
+# K1 launches of a run's final check_model: two b32 sweeps of 64 samples
+# (train and val) and a triptych of three G calls after each.
+PROOF_SWEEP_K1 = 2 + 2 + 3 * 2
+
+
+def _tool(main, argv, log_path):
+    """A tool's ``main(argv)`` in this process, its stdout into
+    ``log_path``; -> (exit code, seconds, launches, the last line)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+        rc = main(argv)
+    wall = time.perf_counter() - t0
+    path = read_launches()
+    with open(log_path) as f:
+        last = f.read().strip().splitlines()[-1]
+    return rc, wall, path, last
+
+
+def _proof_line(name, s, wall, k1, card):
+    h = s["h2d"]
+    iv = s["intervals_s"]
+    return (f"[proofs] train_proof {name} ({s['mode']}): {s['iters']} steps "
+            f"b{s['batch_size']} on {s['images']} JPEGs ({s['dataset_images']}"
+            f" pass the filters, {s['dataset_images'] // s['batch_size']} "
+            f"batches an epoch) in {wall:.1f} s (the CLI {s['wall_s']:.1f}): "
+            f"L1 {s['l1_head']:.4f} -> {s['l1_tail']:.4f} (first and last "
+            f"4 records; trace {' '.join(f'{v:.4f}' for _, v in s['l1'])}); "
+            f"steady {s['steady_img_s']:.1f} img/s, median interval "
+            f"{s['median_interval_s']:.3f} s ({s['median_img_s']:.1f} img/s), "
+            f"intervals min {min(iv):.3f} max {max(iv):.3f} s; loader alone "
+            f"{s['loader_img_s']:.0f} img/s ({s['workers']} workers, "
+            f"{s['cpus']} cores), decode {s['decode_ms_per_image']:.3f} "
+            f"ms/img; one batch to the card {h['bytes'] / 1e6:.3f} MB: "
+            f"pageable {h['pageable_ms']:.4f} ms, pinned {h['pinned_ms']:.4f}"
+            f" ms; final check_model box IoU train "
+            f"{s['iou']['train_iou']:.4f} val {s['iou']['val_iou']:.4f}; "
+            f"K1 launches {k1}; ops without a deterministic "
+            f"implementation: {s['nondeterministic'] or 'none warned'}; "
+            f"on {card}")
+
+
+def phase_proofs(torch, card, launches, work):
+    """The training proofs through sg2im_tpu_torch.tools on the card; see
+    the module docstring.  Their datasets and runs stay in ``work``, their
+    output in build/chip_smoke/proof_*.log."""
+    from sg2im_tpu_torch.data.loader import PaddedLoader
+    from sg2im_tpu_torch.inference import full_fp32
+    from sg2im_tpu_torch.tools import (
+        loader_bench,
+        train_proof,
+        trained_fidelity,
+    )
+
+    logs = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(logs, exist_ok=True)
+    # K1 at the proofs' widths (trained_fidelity's D 64, train_proof's
+    # 128) on a batch of the proof's own data, as the CLI pads it.
+    paths = train_proof.build_dataset(os.path.join(work, "proof_k1"), 64)
+    batch = next(iter(PaddedLoader(train_proof.open_dataset(*paths),
+                                   batch_size=32, O_max=16, T_max=16,
+                                   num_workers=4, seed=0)))
+    boxes, masks, obj_mask = (torch.tensor(np.asarray(batch[k]),
+                                           dtype=torch.float32, device="cuda")
+                              for k in ("boxes", "masks", "obj_mask"))
+    with full_fp32():
+        for D in (64, 128):
+            check_k1_function(torch, boxes, masks, obj_mask, D, "[proofs]")
+
+    def others(path):
+        return {k: v for k, v in path.items()
+                if k != "layout_compose_boxes" and v}
+
+    runs = {}
+    for name, extra in (
+            ("f32", []),
+            ("f32 again", ["--iters", str(PROOF_REPEAT_ITERS)]),
+            ("bf16/split", ["--bf16", "1", "--crn_mode", "split"])):
+        tag = name.replace("/", "_").replace(" ", "_")
+        out = os.path.join(work, f"proof_{tag}")
+        argv = ["--iters", str(PROOF_ITERS), "--workers", "8", "--device",
+                "cuda", "--out", out] + extra
+        if name == "f32 again":
+            argv += ["--compare_to", runs["f32"]]
+        rc, wall, path, _ = _tool(train_proof.main, argv,
+                                  os.path.join(logs, f"proof_{tag}.log"))
+        add_launches(launches, path)
+        check_no_padded_copies(f"train_proof {name}")
+        with open(os.path.join(out, "train_proof.json")) as f:
+            s = json.load(f)
+        runs[name] = os.path.join(out, "train_proof.json")
+        k1 = path["layout_compose_boxes"]
+        print(_proof_line(name, s, wall, k1, card))
+        l1 = [v for _, v in s["l1"]]
+        if rc != 0 or not s["decreased"] or not np.isfinite(l1).all():
+            fail(f"train_proof {name} exited {rc}: L1 {s['l1_head']:.4f} -> "
+                 f"{s['l1_tail']:.4f}, finite {np.isfinite(l1).all()}")
+        if k1 != s["iters"] + PROOF_SWEEP_K1 or others(path):
+            fail(f"train_proof {name}: K1 launched {k1} times, expected "
+                 f"{s['iters'] + PROOF_SWEEP_K1}; other kernels "
+                 f"{others(path)}")
+        if "compared_to" in s:
+            c = s["compared_to"]
+            print(f"[proofs] train_proof {name}: its L1 trace against the "
+                  f"first f32 run's: {c['records']} common records (steps "
+                  f"25-{25 * c['records']}), bit-identical "
+                  f"{c['bit_identical']}")
+            if not c["bit_identical"]:
+                fail("two f32 train_proof runs gave different L1 traces")
+
+    out = os.path.join(work, "fidelity")
+    rc, wall, path, last = _tool(trained_fidelity.main, [
+        "--iters", str(FIDELITY_ITERS), "--workers", "8", "--device", "cuda",
+        "--out", out], os.path.join(logs, "proof_trained_fidelity.log"))
+    add_launches(launches, path)
+    result = json.loads(last)
+    k1 = path["layout_compose_boxes"]
+    l1 = [v for _, v in result["l1"]]
+    print(f"[proofs] trained_fidelity: {FIDELITY_ITERS} steps b32 of the "
+          f"small generator (embed/gconv 64, CRN 256,128,64) in "
+          f"{result['wall_s']:.1f} s of CLI ({wall:.1f} s in all); L1 "
+          f"{np.mean(l1[:3]):.4f} -> {np.mean(l1[-3:]):.4f} (first and last "
+          f"3 records); final check_model box IoU train "
+          f"{result['iou']['train_iou']:.4f} val "
+          f"{result['iou']['val_iou']:.4f}; export -> goldens from the CPU "
+          f"engine -> "
+          f"verify_pretrained --device cuda: {result['psnr_u8_db_trained']:.2f}"
+          f" dB u8 (bar {PSNR_BAR}); K1 launches {k1} ({FIDELITY_ITERS} "
+          f"steps + {PROOF_SWEEP_K1} + 1 gate forward); on {card}")
+    if rc != 0 or not result["pass"] or not (
+            result["psnr_u8_db_trained"] >= PSNR_BAR):
+        fail(f"trained_fidelity exited {rc}: {result['psnr_u8_db_trained']}"
+             f" dB")
+    if k1 != FIDELITY_ITERS + PROOF_SWEEP_K1 + 1 or others(path):
+        fail(f"trained_fidelity: K1 launched {k1} times; other kernels "
+             f"{others(path)}")
+
+    rc, wall, _, last = _tool(loader_bench.main, [
+        "--proof_report", runs["f32"], "--out", os.path.join(work, "lb")],
+        os.path.join(logs, "proof_loader_bench.log"))
+    if rc != 0:
+        fail(f"loader_bench exited {rc}")
+    lb = json.loads(last)
+    print(f"[proofs] loader_bench at the f32 proof's steady "
+          f"{lb['step_rate']:.1f} img/s: raw decode ms/img "
+          + ", ".join(f"{k} {v:.3f}" for k, v in lb["raw_ms"].items())
+          + f", cached read {lb['cached_ms']:.3f} (cache built in "
+          f"{lb['cache_build_s']:.1f} s); PaddedLoader img/s "
+          + ", ".join(f"{k} {v:.0f}" for k, v in lb["loader_img_s"].items())
+          + f" ({wall:.1f} s in all)")
+
+
 def main() -> int:
     import torch
 
@@ -2723,6 +2916,7 @@ def main() -> int:
                                               in_memory, work)
         phase_tools(torch, card, launches, coco_flags, run_dir, work)
         phase_parallel(torch, card, launches, coco_flags)
+        phase_proofs(torch, card, launches, work)
     phase_mesh(torch, card, launches)
     layout_src = "sg2im_tpu/ops/pallas/layout_kernel.py"
     conv_replaces = "scripts/proto_pallas_conv.py:122"

@@ -22,14 +22,29 @@ def imagenet_preprocess(img):
     return (img - IMAGENET_MEAN) / IMAGENET_STD
 
 
-def imagenet_deprocess_batch(imgs: np.ndarray) -> np.ndarray:
+def imagenet_deprocess(img, rescale_image: bool = True):
+    """Undo the normalisation of an (H, W, 3) or (N, H, W, 3) float array;
+    with ``rescale_image``, min-max rescale each image over all channels.
+    -> a float array of the same shape, in [0, 1] if rescaled (not yet
+    uint8)."""
+    x = img * IMAGENET_STD + IMAGENET_MEAN
+    if rescale_image:
+        if x.ndim == 3:
+            lo, hi = x.min(), x.max()
+        else:
+            lo = x.reshape(x.shape[0], -1).min(axis=1)[:, None, None, None]
+            hi = x.reshape(x.shape[0], -1).max(axis=1)[:, None, None, None]
+        x = (x - lo) / (hi - lo)
+    return x
+
+
+def imagenet_deprocess_batch(imgs: np.ndarray,
+                             rescale: bool = True) -> np.ndarray:
     """(N, H, W, 3) imagenet-normalised float -> (N, H, W, 3) uint8:
-    denormalise, min-max rescale each image over all channels, scale by
-    255, clip, truncate (reference ``imagenet_deprocess_batch``)."""
-    x = np.asarray(imgs) * IMAGENET_STD + IMAGENET_MEAN
-    lo = x.reshape(x.shape[0], -1).min(axis=1)[:, None, None, None]
-    hi = x.reshape(x.shape[0], -1).max(axis=1)[:, None, None, None]
-    x = (x - lo) / (hi - lo)
+    denormalise, min-max rescale each image over all channels (unless
+    ``rescale`` is False), scale by 255, clip, truncate (reference
+    ``imagenet_deprocess_batch``)."""
+    x = imagenet_deprocess(np.asarray(imgs), rescale_image=rescale)
     return np.clip(x * 255.0, 0, 255).astype(np.uint8)
 
 

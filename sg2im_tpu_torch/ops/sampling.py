@@ -1,5 +1,6 @@
 """Bilinear sampling, plain PyTorch: separable ("tent") sampling, the
-crops' linspace grids and the border-clamped gather sampler.
+crops' linspace grids, the border-clamped gather sampler and the general
+grid sampler.
 
 Counterpart of ``sg2im_tpu/ops/sampling.py``.  Every sampling grid of the
 layout warp is separable, so bilinear sampling with torch-0.4
@@ -14,6 +15,7 @@ with ``W[p, i] = max(0, 1 - |src(p) - i|)``.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def tent_weights(src: torch.Tensor, size: int) -> torch.Tensor:
@@ -38,6 +40,12 @@ def separable_sample(img: torch.Tensor, wy: torch.Tensor,
     """``wy @ img @ wx^T``: img (..., H, W), wy (..., HH, H), wx (..., WW, W)
     -> (..., HH, WW)."""
     return torch.matmul(torch.matmul(wy, img), wx.transpose(-1, -2))
+
+
+def normalized_to_pixel(coord, size: int):
+    """align_corners=True normalized coordinates [-1, 1] -> pixel
+    coordinates [0, size - 1]."""
+    return (coord + 1.0) * 0.5 * (size - 1)
 
 
 def tensor_linspace(start: torch.Tensor, end: torch.Tensor,
@@ -78,3 +86,23 @@ def bilinear_sample_border(img: torch.Tensor, X: torch.Tensor,
     w4 = ((gx - x0) * (gy - y0))[:, None]
     return (w1 * gather(y0, x0) + w2 * gather(y1, x0) + w3 * gather(y0, x1)
             + w4 * gather(y1, x1))
+
+
+def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """General bilinear grid sample with torch-0.4 ``F.grid_sample``
+    semantics (align_corners=True, zeros padding): grid values in [-1, 1]
+    address texel centres, and taps outside the image add 0.  A grid point
+    with a non-finite coordinate (a degenerate box) samples 0.
+
+    The arguments keep the JAX function's layout: img (N, H, W, C) and
+    grid (N, Hg, Wg, 2) with ``grid[..., 0]`` the x (width) coordinate ->
+    (N, Hg, Wg, C).  This is the public sampler of the JAX package's API,
+    whose tensors are NHWC, not one of the port's NCHW modules (none of
+    which calls it): stock ``F.grid_sample`` runs it on NCHW views, as XLA
+    runs it without a Pallas kernel.
+    """
+    finite = torch.isfinite(grid).all(-1)
+    safe = torch.where(finite[..., None], grid, torch.zeros_like(grid))
+    out = F.grid_sample(img.permute(0, 3, 1, 2), safe, mode="bilinear",
+                        padding_mode="zeros", align_corners=True)
+    return out.permute(0, 2, 3, 1) * finite[..., None].to(out.dtype)

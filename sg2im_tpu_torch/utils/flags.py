@@ -10,6 +10,10 @@ def int_tuple(s: str):
     return tuple(int(i) for i in s.split(","))
 
 
+def float_tuple(s: str):
+    return tuple(float(i) for i in s.split(","))
+
+
 def str_tuple(s: str):
     return tuple(s.split(","))
 

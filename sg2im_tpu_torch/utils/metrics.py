@@ -1,5 +1,6 @@
-"""Metrics of validation and of the fidelity gate (counterparts of
-``sg2im_tpu/utils/metrics.py``: ``jaccard`` and ``psnr``)."""
+"""Metrics of validation, of training and of the fidelity gate
+(counterparts of ``sg2im_tpu/utils/metrics.py``: ``jaccard``,
+``grad_global_norm`` and ``psnr``)."""
 
 from __future__ import annotations
 
@@ -31,6 +32,20 @@ def jaccard(bbox_pred, bbox_gt, mask=None):
     if mask is not None:
         iou = iou * mask.to(iou.dtype)
     return iou.sum()
+
+
+def grad_global_norm(grads) -> torch.Tensor:
+    """Global L2 norm, in float32, over gradient tensors given as an
+    iterable or a dict (the JAX function takes a pytree); the sane
+    replacement for upstream's ``get_total_norm`` (``metrics.py:37-49``).
+    None entries (parameters without a gradient) are left out."""
+    if isinstance(grads, dict):
+        grads = grads.values()
+    total = torch.zeros((), dtype=torch.float32)
+    for g in grads:
+        if g is not None:
+            total = total.to(g.device) + g.float().square().sum()
+    return total.sqrt()
 
 
 def psnr(a, b, max_val: float = 255.0) -> float:

@@ -322,6 +322,27 @@ def test_train_kernel_gradients_on_the_card(train_card):
         chip_smoke.check_train_gradients(torch, _coco64(train_card)[2])
 
 
+@pytest.mark.parametrize("D", [64, 128])
+def test_k1_function_at_the_proofs_widths(train_card, tmp_path, D):
+    """K1 through its Function on a b32 batch of the training proofs' own
+    data (trained_fidelity's D 64, train_proof's 128), as chip_smoke's
+    phase_proofs checks it."""
+    from sg2im_tpu_torch.data.loader import PaddedLoader
+    from sg2im_tpu_torch.tools import train_proof
+
+    paths = train_proof.build_dataset(str(tmp_path), 64)
+    batch = next(iter(PaddedLoader(train_proof.open_dataset(*paths),
+                                   batch_size=32, O_max=16, T_max=16,
+                                   num_workers=2, seed=0)))
+    boxes, masks, obj_mask = (torch.tensor(batch[k], dtype=torch.float32,
+                                           device=train_card)
+                              for k in ("boxes", "masks", "obj_mask"))
+    with full_fp32():
+        err = chip_smoke.check_k1_function(torch, boxes, masks, obj_mask, D,
+                                           "[test]")
+    assert err <= chip_smoke.KERNEL_BAR
+
+
 def test_full_width_train_step_on_the_card(train_card):
     """One COCO-64 b32 step of the Trainer on the card: finite losses, not
     skipped, K1 launched once, every state tensor finite."""
