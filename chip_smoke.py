@@ -116,21 +116,33 @@ with a non-zero exit code:
    steps at b32 with 8 loader workers, L1 falling; a second f32 run of
    PROOF_REPEAT_ITERS steps whose L1 trace is bit-identical to the
    first's on their common prefix; bf16 / 'split' for PROOF_ITERS steps,
-   L1 falling; trained_fidelity for FIDELITY_ITERS steps, its export
-   through verify_pretrained --device cuda against the CPU engine's
-   goldens at >= 40 dB; loader_bench at the f32 proof's steady rate.
-   K1 launched exactly once per step and per final check_model and gate
-   forward, and no other kernel.  Their output goes to
-   build/chip_smoke/proof_*.log.
+   L1 falling; trained_fidelity for FIDELITY_ITERS steps at its
+   documented seed, its box head alive at init and after training, its
+   export through verify_pretrained --device cuda against the CPU engine's
+   goldens at >= 40 dB, and its box-head probe refusing seed 0 on the
+   card; loader_bench at the f32 proof's steady rate.  K1 launched exactly
+   once per step and per final check_model, probe and gate forward, and
+   no other kernel.  Their output goes to build/chip_smoke/proof_*.log;
+15. measure: every measurement tool of sg2im_tpu_torch.tools once at
+   reduced counts (MEASURE_RUNS): bw_probe's stream rates; roofline's
+   per-section rows of the vg128 b128 forward in bf16 / 'split' and bf16 /
+   'packed' with its profile; profile_crn's per-stage times, its modes
+   equal in f32; roofline_train's rows of the COCO-64 b32 step in both
+   configurations with their idle shares; profile_seeded_noise's eager,
+   seeded and zero-noise paths, eager and seeded bit-identical;
+   profile_turbo_frontier's bands.  Each exits 0, launches the kernels of
+   its path, and every row is there and finite, with no share of a
+   data-sheet peak or of the speed of light above SHARE_BAR.  Their output
+   goes to build/chip_smoke/measure_*.log.
 
 Each path (the turbo CLI, the vg128 requests of f32 and bf16/split, the
 turbo requests, the requests of each further CRN mode, the HTTP traffic of
 each server, the train steps of each mode, the uninterrupted CLI run of
 each mode, each sample_images run, the data-parallel ranks (counted in
 their processes), the world-1 NCCL steps and CLI run, each mesh engine's
-generate, each proof tool's run) runs with the kernels' launch
-counts set to 0 just before it and read just after; the
-conv wrappers' padded input copies, counted the same way, must stay 0 on
+generate, each proof tool's run, each measurement tool's run) runs with
+the kernels' launch counts set to 0 just before it and read just after;
+the conv wrappers' padded input copies, counted the same way, must stay 0 on
 every path and in every timed batch-128 forward.
 The line before the last is a JSON summary of every ported kernel with
 its launches on those paths, its time beside its plain version's, its
@@ -153,19 +165,23 @@ import time
 
 import numpy as np
 
+from sg2im_tpu_torch.tools._measure import time_ms, vg128_config
+from sg2im_tpu_torch.utils.roofline import (
+    BF16_FLOPS,
+    F32_FLOPS,
+    INT8_OPS,
+    conv_bounds,
+    layout_bounds,
+    relayout_bounds,
+    roofline_ms,
+)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "sg2im_tpu_torch/csrc/layout_compose.cu"
 CONV_SOURCE = "sg2im_tpu_torch/csrc/conv3x3.cu"
 RELAYOUT_SOURCE = "sg2im_tpu_torch/csrc/relayout.cu"
 KERNEL_BAR = 1e-5  # max abs error vs the plain version (tests/test_pallas.py)
 PSNR_BAR = 40.0    # u8 dB, the fidelity gate of the JAX package
-# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
-# device memory bytes/s, bf16 tensor FLOP/s, int8 tensor OP/s, f32 FLOP/s
-# outside the tensor cores.
-HBM_BYTES = 3.35e12
-BF16_FLOPS = 989e12
-INT8_OPS = 1979e12
-F32_FLOPS = 67e12
 
 
 class SmokeFailure(Exception):
@@ -174,14 +190,6 @@ class SmokeFailure(Exception):
 
 def fail(msg: str) -> None:
     raise SmokeFailure(msg)
-
-
-def roofline_ms(nbytes, ops, peak):
-    """The least time for moving ``nbytes`` and doing ``ops`` at ``peak``
-    per second: (ms, "bytes" or "operations", whichever bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES, ops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def psnr_u8(a, b) -> float:
@@ -346,46 +354,9 @@ def check_kernel_case(torch, name, N, O, M, H, W, D, degenerate, dense,
     return errs
 
 
-def _time_ms(torch, fn, iters=20, warmup=3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 # (N, O, M, H, W, D) of the layout-compose timing: the serving path at
 # batch 128.
 LAYOUT_TIMED = (128, 16, 16, 128, 128, 128)
-
-
-def layout_bounds(N, O, M, H, W, D, weights):
-    """(bytes, f32 operations) of one layout compose: boxes (or the warp
-    weights Wy, Wx), masks and vecs read once, the f32 layout written once;
-    per object the coefficients Wy . mask . Wx^T, then their sum of the
-    object vectors."""
-    inputs = N * O * (M * M + D) + (N * O * (H + W) * M if weights
-                                    else N * O * 4)
-    nbytes = 4 * (inputs + N * H * W * D)
-    ops = 2 * N * O * (H * M * M + H * W * M) + 2 * N * O * H * W * D
-    return nbytes, ops
-
-
-def relayout_bounds():
-    """{entry: (bound ms, bound by)} of K3 summed over the packed path's
-    batch-128 shapes: each tensor read once and written once."""
-    out = {}
-    for entry, shape, dtype, _ in RELAYOUT_PATH.values():
-        size = {"bfloat16": 2, "float32": 4, "int8": 1}[dtype]
-        nbytes = 2 * size * int(np.prod(shape))
-        out[entry] = out.get(entry, 0.0) + roofline_ms(nbytes, 0, 1.0)[0]
-    return {entry: (ms, "bytes") for entry, ms in out.items()}
 
 
 def weights_library(torch, wy, wx, masks, vecs):
@@ -412,17 +383,17 @@ def phase_kernels(torch, card):
         before = (lk.layout_compose.launches,
                   lk.layout_compose_weights.launches)
         times = {
-            "boxes": _time_ms(torch, lambda: lk.layout_compose(
+            "boxes": time_ms(lambda: lk.layout_compose(
                 boxes, masks, vecs, H, W)),
-            "boxes_plain": _time_ms(torch, lambda: lk.layout_compose_ref(
+            "boxes_plain": time_ms(lambda: lk.layout_compose_ref(
                 boxes, masks, vecs, H, W)),
-            "weights": _time_ms(torch, lambda: lk.layout_compose_weights(
+            "weights": time_ms(lambda: lk.layout_compose_weights(
                 wy, wx, masks, vecs)),
-            "weights_plain": _time_ms(
-                torch, lambda: lk.layout_compose_weights_ref(
+            "weights_plain": time_ms(
+                lambda: lk.layout_compose_weights_ref(
                     wy, wx, masks, vecs)),
-            "weights_library": _time_ms(
-                torch, lambda: weights_library(torch, wy, wx, masks, vecs)),
+            "weights_library": time_ms(
+                lambda: weights_library(torch, wy, wx, masks, vecs)),
         }
         lib_err = (weights_library(torch, wy, wx, masks, vecs)
                    - lk.layout_compose_weights_ref(wy, wx, masks, vecs)
@@ -435,7 +406,7 @@ def phase_kernels(torch, card):
             fail("a timed kernel was not launched")
         # The write's yardstick: a fill_ of as many bytes as the output.
         dst = torch.empty((N, H, W, D), device="cuda")
-        times["fill"] = _time_ms(torch, lambda: dst.fill_(1.0))
+        times["fill"] = time_ms(lambda: dst.fill_(1.0))
         del dst
     out_gb = N * H * W * D * 4 / 1e9
     plan = lk.weights_plan(O, H, W, M, D)
@@ -582,14 +553,6 @@ def check_conv_case(torch, name, N, H, W, Cin, Co, offset=0, seed=0):
     return errs
 
 
-def conv_bounds(N, H, W, Cin, Co, elem_size):
-    """(bytes, operations) of one 3x3 conv: x and the weight read once, the
-    f32 output written once (the scale / bias / dq vectors are noise)."""
-    nbytes = N * H * W * Cin * elem_size + 9 * Cin * Co * elem_size \
-        + N * H * W * Co * 4
-    return nbytes, 2 * N * H * W * 9 * Cin * Co
-
-
 def phase_conv(torch, card):
     """The conv kernel's entries against their plain versions, then their
     time at batch 128 on the turbo path's shapes, in turns with cuDNN's
@@ -620,24 +583,24 @@ def phase_conv(torch, card):
             def bf16():
                 return ck.conv3x3(t["xb"], t["wb"], t["scale"], t["bias"])
 
-            first = {"s8": _time_ms(torch, s8),
-                     "bf16": _time_ms(torch, bf16)}
-            ms = {"cudnn_bf16": _time_ms(torch, lambda: F.conv2d(
+            first = {"s8": time_ms(s8),
+                     "bf16": time_ms(bf16)}
+            ms = {"cudnn_bf16": time_ms(lambda: F.conv2d(
                 t["xb"], t["wb"], padding=1))}
-            second = {"s8": _time_ms(torch, s8),
-                      "bf16": _time_ms(torch, bf16)}
+            second = {"s8": time_ms(s8),
+                      "bf16": time_ms(bf16)}
             for k in ("s8", "bf16"):
                 ms[k] = min(first[k], second[k])
                 turns[k][0] += first[k]
                 turns[k][1] += second[k]
             for k, w, size in (("s8", t["w8"], 1), ("bf16", t["wb"], 2)):
                 plan = ck.tile_plan(H, W, Cin, Co, size)
-                ms[k + "_pack"] = _time_ms(
-                    torch, lambda: ck.pack_weights(w, plan))
+                ms[k + "_pack"] = time_ms(
+                    lambda: ck.pack_weights(w, plan))
             # float64 / float32 convolutions: few iterations.
-            ms["s8_plain"] = _time_ms(torch, lambda: ck.conv3x3_int8_ref(
+            ms["s8_plain"] = time_ms(lambda: ck.conv3x3_int8_ref(
                 t["x8"], t["w8"], t["dq"]), iters=2, warmup=1)
-            ms["bf16_plain"] = _time_ms(torch, lambda: ck.conv3x3_ref(
+            ms["bf16_plain"] = time_ms(lambda: ck.conv3x3_ref(
                 t["xb"], t["wb"], t["scale"], t["bias"]), iters=5, warmup=1)
             for k in keys:
                 times[k] += ms[k]
@@ -766,9 +729,9 @@ def phase_relayout(torch, card):
             x = relayout_input(torch, shape, dtype, seed=3)
             fn, plain = relayout_entry(entry)
             dst = torch.empty_like(x)
-            ms = {"": _time_ms(torch, lambda: fn(x)),
-                  "_plain": _time_ms(torch, lambda: plain(x)),
-                  "_copy": _time_ms(torch, lambda: dst.copy_(x))}
+            ms = {"": time_ms(lambda: fn(x)),
+                  "_plain": time_ms(lambda: plain(x)),
+                  "_copy": time_ms(lambda: dst.copy_(x))}
             for k, v in ms.items():
                 times[entry + k] += v
             gb = 2 * x.numel() * x.element_size() / 1e9  # read + write
@@ -896,21 +859,6 @@ def phase_checkpoint(torch, launches):
     if p_turbo < PSNR_BAR:
         fail(f"turbo CLI disagrees with the CPU turbo engine: "
              f"{p_turbo:.2f} dB")
-
-
-def vg128_config():
-    """Flagship vg128 (bench.py:77-92): vocab and generator kwargs."""
-    objects = ["__image__"] + [f"o{i}" for i in range(1, 179)]
-    preds = ["__in_image__"] + [f"p{i}" for i in range(1, 46)]
-    vocab = {"object_idx_to_name": objects, "pred_idx_to_name": preds,
-             "object_name_to_idx": {n: i for i, n in enumerate(objects)},
-             "pred_name_to_idx": {n: i for i, n in enumerate(preds)}}
-    kwargs = dict(image_size=(128, 128), embedding_dim=128, gconv_dim=128,
-                  gconv_hidden_dim=512, gconv_num_layers=5,
-                  refinement_dims=(1024, 512, 256, 128, 64),
-                  normalization="batch", activation="leakyrelu-0.2",
-                  mask_size=16, layout_noise_dim=32)
-    return vocab, kwargs
 
 
 def random_graphs(vocab, n, rng, n_objs=10, n_rels=21):
@@ -1836,9 +1784,9 @@ def phase_train(torch, card, launches):
     vecs = torch.randn((N, 16, 128), device="cuda") * batch["obj_mask"][
         ..., None]
     gout = torch.randn((N, 64, 64, 128), device="cuda")
-    k1 = _time_ms(torch, lambda: lk.layout_compose(
+    k1 = time_ms(lambda: lk.layout_compose(
         batch["boxes"], batch["masks"], vecs, 64, 64))
-    k1_bwd = _time_ms(torch, lambda: lk._plain_vjp(
+    k1_bwd = time_ms(lambda: lk._plain_vjp(
         lambda b, mm, v: lk.layout_compose_ref(b, mm, v, 64, 64),
         (batch["boxes"], batch["masks"], vecs), (False, False, True), gout))
     ms32 = numbers["f32/legacy"][0]
@@ -2776,8 +2724,9 @@ def _proof_line(name, s, wall, k1, card):
             f"{s['loader_img_s']:.0f} img/s ({s['workers']} workers, "
             f"{s['cpus']} cores), decode {s['decode_ms_per_image']:.3f} "
             f"ms/img; one batch to the card {h['bytes'] / 1e6:.3f} MB: "
-            f"pageable {h['pageable_ms']:.4f} ms, pinned {h['pinned_ms']:.4f}"
-            f" ms; final check_model box IoU train "
+            f"pageable {h['pageable_ms']:.4f} ms ({h['pageable_gb_s']:.2f} "
+            f"GB/s), pinned {h['pinned_ms']:.4f} ms ({h['pinned_gb_s']:.2f} "
+            f"GB/s), one staged buffer each; final check_model box IoU train "
             f"{s['iou']['train_iou']:.4f} val {s['iou']['val_iou']:.4f}; "
             f"K1 launches {k1}; ops without a deterministic "
             f"implementation: {s['nondeterministic'] or 'none warned'}; "
@@ -2870,12 +2819,29 @@ def phase_proofs(torch, card, launches, work):
           f"engine -> "
           f"verify_pretrained --device cuda: {result['psnr_u8_db_trained']:.2f}"
           f" dB u8 (bar {PSNR_BAR}); K1 launches {k1} ({FIDELITY_ITERS} "
-          f"steps + {PROOF_SWEEP_K1} + 1 gate forward); on {card}")
+          f"steps + {PROOF_SWEEP_K1} + the box-head probe's and the "
+          f"gate's forwards); on {card}")
+    print(f"[proofs] trained_fidelity's box head at seed {result['seed']}:"
+          f" x0, y0, x1, y1 non-zero for "
+          f"{', '.join(f'{v:.4f}' for v in result['box_nonzero_share_init'])}"
+          f" of the objects at init, alive after training "
+          f"{result['box_head_alive']}")
     if rc != 0 or not result["pass"] or not (
             result["psnr_u8_db_trained"] >= PSNR_BAR):
         fail(f"trained_fidelity exited {rc}: {result['psnr_u8_db_trained']}"
-             f" dB")
-    if k1 != FIDELITY_ITERS + PROOF_SWEEP_K1 + 1 or others(path):
+             f" dB; box head alive {result['box_head_alive']}; "
+             f"{result['cause']}")
+    # The seed contract on the card: the probe refuses seed 0's init and
+    # passes the documented seed's, on the first batch of the proof data.
+    shares = {seed: trained_fidelity.box_head_probe(trained_fidelity.
+              train_flags(paths, 1, 32, 4, seed, "cuda"))
+              for seed in (0, trained_fidelity.SEED)}
+    print(f"[proofs] trained_fidelity's box-head probe on the card, the "
+          f"share of objects with x0, y0, x1, y1 non-zero at init: {shares}")
+    if min(shares[0]) != 0.0 or min(shares[trained_fidelity.SEED]) == 0.0:
+        fail(f"the box-head probe did not refuse seed 0 and pass seed "
+             f"{trained_fidelity.SEED}: {shares}")
+    if k1 != FIDELITY_ITERS + PROOF_SWEEP_K1 + 2 or others(path):
         fail(f"trained_fidelity: K1 launched {k1} times; other kernels "
              f"{others(path)}")
 
@@ -2892,6 +2858,128 @@ def phase_proofs(torch, card, launches, work):
           f"{lb['cache_build_s']:.1f} s); PaddedLoader img/s "
           + ", ".join(f"{k} {v:.0f}" for k, v in lb["loader_img_s"].items())
           + f" ({wall:.1f} s in all)")
+
+
+# The measurement tools (sg2im_tpu_torch.tools) once each at reduced
+# counts: {tool: (arguments, kernels its run must launch)}.  Their full
+# runs, behind PERF.md's tables, are the tools' own defaults.
+MEASURE_RUNS = {
+    "bw_probe": (["--iters", "5"], ()),
+    "roofline": (["--modes", "bf16/split,bf16/packed", "--iters", "3",
+                  "--profile"],
+                 ("layout_compose_boxes", "relayout_s2d", "relayout_d2s")),
+    "profile_crn": (["--iters", "3"], ("relayout_s2d", "relayout_d2s")),
+    "roofline_train": (["--iters", "3"], ("layout_compose_boxes",)),
+    "profile_seeded_noise": (["--iters", "3", "--windows", "2"],
+                             ("layout_compose_boxes",)),
+    "profile_turbo_frontier": (["--iters", "3", "--windows", "2"],
+                               ("layout_compose_boxes", "conv3x3_s8")),
+}
+ROOFLINE_SECTIONS = (
+    ["peak_bf16_matmul", "peak_f32_matmul", "peak_scale_add", "gcn_x5",
+     "box+rel_heads", "mask_head", "layout_compose", "noise+concat",
+     "crn_total"] + [f"crn_s{s}_conv{k}" for s in range(1, 6)
+                     for k in (0, 1)]
+    + [f"crn_stage{s}_prod" for s in range(1, 6)] + ["e2e_forward"])
+TRAIN_SECTIONS = ("g_forward", "g_forward_backward", "d_obj_step",
+                  "d_img_step", "crop_kernel", "adam_updates", "full_step")
+SHARE_BAR = 105.0   # % of a data-sheet peak or of the speed of light
+
+
+def check_rows(tool, what, rows, names):
+    """Every section of ``names`` present once with finite numbers, and no
+    share of a data-sheet peak or of the speed of light above SHARE_BAR."""
+    from sg2im_tpu_torch.utils.roofline import max_share
+
+    got = [r["section"] for r in rows]
+    if sorted(got) != sorted(names):
+        fail(f"{tool} {what}: sections {got}, expected {list(names)}")
+    for r in rows:
+        nums = [r["ms"], r["gflops"], r["mbytes"]]
+        if not (np.isfinite(nums).all() and r["ms"] > 0
+                and r.get("finite", True)):
+            fail(f"{tool} {what}: {r['section']} not finite: {r}")
+        if max_share(r) > SHARE_BAR:
+            fail(f"{tool} {what}: {r['section']} reads {max_share(r):.1f}% "
+                 f"of a data-sheet peak or of its speed of light")
+
+
+def _share_text(r):
+    return (f"{r['section']} {r['ms']:.4f} ms, {r['gflops']:.2f} GF, "
+            f"{r['mbytes']:.1f} MB, {r['pct_sol']:.1f}% of sol "
+            f"({r['bound']})")
+
+
+def phase_measure(torch, card, launches, work):
+    """Each measurement tool once on the card; see the module docstring.
+    Their output goes to build/chip_smoke/measure_*.log."""
+    import importlib
+
+    logs = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(logs, exist_ok=True)
+    out = {}
+    for tool, (argv, needs) in MEASURE_RUNS.items():
+        main_fn = importlib.import_module(f"sg2im_tpu_torch.tools.{tool}").main
+        d = os.path.join(work, tool)
+        rc, wall, path, _ = _tool(main_fn, argv + ["--device", "cuda",
+                                                    "--out", d],
+                                  os.path.join(logs, f"measure_{tool}.log"))
+        add_launches(launches, path)
+        check_no_padded_copies(tool)
+        if rc != 0:
+            fail(f"{tool} exited {rc} (build/chip_smoke/measure_{tool}.log)")
+        missing = [k for k in needs if path[k] == 0]
+        if missing:
+            fail(f"{tool} never launched {missing}: {path}")
+        with open(os.path.join(d, f"{tool}.json")) as f:
+            out[tool] = json.load(f)
+        print(f"[measure] {tool} {' '.join(argv)}: {wall:.1f} s, launches "
+              f"{ {k: v for k, v in path.items() if v} }")
+
+    bw = out["bw_probe"]
+    for r in bw["rows"]:
+        if not (np.isfinite(r["gb_s"]) and 0 < r["pct_sheet"] <= SHARE_BAR):
+            fail(f"bw_probe {r['variant']} {r['dtype']}: {r['gb_s']} GB/s")
+    print("[measure] bw_probe (GB/s, reads + writes; data sheet 3350): "
+          + ", ".join(f"{r['variant']} {r['dtype']} {r['gb_s']:.1f}"
+                      for r in bw["rows"]) + f"; on {card}")
+    for res in out["roofline"]:
+        check_rows("roofline", res["mode"], res["sections"],
+                   ROOFLINE_SECTIONS)
+        pr = res["profile"]
+        print(f"[measure] roofline {res['mode']} b{res['batch']}: "
+              + "; ".join(_share_text(r) for r in res["sections"])
+              + f"; profile: device {pr['device_ms']:.2f} ms, wall "
+              f"{pr['wall_ms']:.2f}, idle {100 * pr['idle_unprofiled']:.1f}%"
+              f", {pr['kernels']:.0f} kernels; on {card}")
+    crn = out["profile_crn"]
+    if not crn["modes_agree"]:
+        fail(f"profile_crn: the modes disagree: "
+             f"{[r['rel_err_vs_legacy_f32'] for r in crn['stages']]}")
+    print("[measure] profile_crn b128 bf16 ms per stage (modes equal in f32 "
+          "within " + f"{crn['bar']}): " + "; ".join(
+              f"s{r['stage']} " + " ".join(f"{m} {v:.3f}"
+                                           for m, v in r["ms"].items())
+              for r in crn["stages"]) + f"; on {card}")
+    for res in out["roofline_train"]:
+        check_rows("roofline_train", res["config"], res["sections"],
+                   TRAIN_SECTIONS)
+        print(f"[measure] roofline_train {res['config']} b{res['batch']}: "
+              + "; ".join(f"{_share_text(r)}, idle {100 * r['idle']:.1f}%"
+                          for r in res["sections"]) + f"; on {card}")
+    sn = out["profile_seeded_noise"]
+    if not sn["bit_identical"]:
+        fail("profile_seeded_noise: eager and seeded images differ")
+    print(f"[measure] profile_seeded_noise b128 bf16/split: eager "
+          f"{sn['eager_img_s']:.1f} img/s, seeded {sn['seeded_img_s']:.1f},"
+          f" zeros {sn['zeros_img_s']:.1f}; the draw "
+          f"{sn['draw_device_ms']:.3f}"
+          f" device ms in {sn['draw_launches']:.0f} launches; eager and "
+          f"seeded bit-identical; on {card}")
+    print("[measure] profile_turbo_frontier b128: " + "; ".join(
+        f"{r['config']} {r['psnr_u8_db']:.2f} dB u8, {r['img_s']:.1f} img/s "
+        f"({r['vs_production_pct']:+.1f}%)"
+        for r in out["profile_turbo_frontier"]) + f"; on {card}")
 
 
 def main() -> int:
@@ -2918,10 +3006,12 @@ def main() -> int:
         phase_parallel(torch, card, launches, coco_flags)
         phase_proofs(torch, card, launches, work)
     phase_mesh(torch, card, launches)
+    with tempfile.TemporaryDirectory() as work:
+        phase_measure(torch, card, launches, work)
     layout_src = "sg2im_tpu/ops/pallas/layout_kernel.py"
     conv_replaces = "scripts/proto_pallas_conv.py:122"
     relayout_src = "sg2im_tpu/ops/pallas/relayout_kernel.py"
-    rl_bounds = relayout_bounds()
+    rl_bounds = relayout_bounds(RELAYOUT_PATH.values())
     # (name, source, replaces, max abs err, ms, plain ms, (bound ms, bound
     # by), one PyTorch call's ms or None)
     rows = [

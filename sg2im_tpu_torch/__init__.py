@@ -25,6 +25,14 @@ def __getattr__(name):
         from sg2im_tpu_torch.inference import InferenceEngine
 
         return InferenceEngine
+    if name == "Trainer":
+        from sg2im_tpu_torch.train.trainer import Trainer
+
+        return Trainer
+    if name == "TrainConfig":
+        from sg2im_tpu_torch.train.config import TrainConfig
+
+        return TrainConfig
     if name == "Sg2ImGenerator":
         from sg2im_tpu_torch.models import Sg2ImGenerator
 

@@ -32,6 +32,19 @@ from sg2im_tpu_torch.data.transforms import (  # noqa: F401 (re-exported)
     imagenet_preprocess,
 )
 
+__all__ = [
+    "GraphBatch",
+    "IMAGENET_MEAN",
+    "IMAGENET_STD",
+    "encode_scene_graphs",
+    "flat_to_padded",
+    "imagenet_deprocess",
+    "imagenet_deprocess_batch",
+    "imagenet_preprocess",
+    "pad_graphs",
+    "padded_to_flat",
+]
+
 
 def encode_scene_graphs(scene_graphs, vocab, O_max: int | None = None,
                         T_max: int | None = None,

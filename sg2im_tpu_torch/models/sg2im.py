@@ -135,6 +135,82 @@ class Sg2ImGenerator(nn.Module):
         """Seeded initialisation with upstream's distributions."""
         init_weights(self, generator)
 
+    # The forward's sections, in order (tools/roofline.py times each).
+
+    def encode_graph(self, objs, triples, obj_mask=None, triple_mask=None):
+        """Embeddings and the GCN -> (obj_vecs, pred_vecs, obj_vecs_orig,
+        s, o): the objects' vectors after and before the GCN, and each
+        triple's subject and object slots."""
+        objs = objs.long()
+        triples = triples.long()
+        s, p, o = triples[..., 0], triples[..., 1], triples[..., 2]
+        obj_vecs = self.obj_embeddings(objs)
+        obj_vecs_orig = obj_vecs
+        pred_vecs = self.pred_embeddings(p)
+        edges = torch.stack([s, o], dim=-1)
+        if self.gconv_num_layers == 0:
+            obj_vecs = self.gconv(obj_vecs)
+        else:
+            obj_vecs, pred_vecs = self.gconv(obj_vecs, pred_vecs, edges,
+                                             triple_mask, obj_mask)
+        if self.gconv_num_layers > 1:
+            obj_vecs, pred_vecs = self.gconv_net(obj_vecs, pred_vecs, edges,
+                                                 triple_mask, obj_mask)
+        return obj_vecs, pred_vecs, obj_vecs_orig, s, o
+
+    def predict_boxes_rels(self, obj_vecs, obj_vecs_orig, s, o,
+                           obj_mask=None, triple_mask=None):
+        """The box head and the relation head -> (boxes (N, O, 4),
+        rel_scores (N, T, num_preds))."""
+        boxes_pred = self.box_net(obj_vecs, mask=obj_mask)
+        rel_aux_in = torch.cat([gather_slots(boxes_pred, s),
+                                gather_slots(boxes_pred, o),
+                                gather_slots(obj_vecs_orig, s),
+                                gather_slots(obj_vecs_orig, o)], dim=-1)
+        return boxes_pred, self.rel_aux_net(rel_aux_in, mask=triple_mask)
+
+    def predict_masks(self, obj_vecs, obj_mask=None):
+        """The mask head -> masks (N, O, M, M) in [0, 1], or None."""
+        if self.mask_size is None or self.mask_size <= 0:
+            return None
+        N, O = obj_vecs.shape[:2]
+        mask_in = obj_vecs.reshape(N * O, -1, 1, 1)
+        flat_mask = None if obj_mask is None else obj_mask.reshape(N * O)
+        return torch.sigmoid(
+            self.mask_net(mask_in, sample_mask=flat_mask)).reshape(
+            N, O, self.mask_size, self.mask_size)
+
+    def compose_layout(self, obj_vecs, boxes, masks, obj_mask=None):
+        """The layout (N, D, H, W) in the compute dtype: NHWC storage
+        viewed as NCHW, a channels_last tensor."""
+        H, W = self.image_size
+        dtype = self.compute_dtype or torch.float32
+        if masks is None:
+            layout = boxes_to_layout(obj_vecs, boxes, obj_mask, H,
+                                     W).to(dtype)
+        else:
+            # In bf16 mode the compose still sums in f32 and writes bf16:
+            # the layout is narrowed before the noise concat.
+            layout = masks_to_layout(obj_vecs, boxes, masks, obj_mask, H, W,
+                                     out_dtype=dtype)
+        return layout.permute(0, 3, 1, 2)
+
+    def crn_input(self, layout, layout_noise=None):
+        """The CRN's inputs -> (layout, noise): the layout with the layout
+        noise concatenated, and None; or in 'split_noise' the layout and
+        the noise apart."""
+        if self.layout_noise_dim <= 0:
+            return layout, None
+        if layout_noise is None:
+            raise ValueError("layout_noise (N, layout_noise_dim, H, W) is "
+                             "required when layout_noise_dim > 0")
+        noise = layout_noise.to(layout.dtype)
+        if self.crn_mode == "split_noise":
+            # The noise rides its own pyramid and conv0 kernel slice:
+            # the full-resolution concat is never stored.
+            return layout, noise
+        return torch.cat([layout, noise], dim=1), None
+
     def forward(self, objs, triples, obj_mask=None, triple_mask=None,
                 layout_noise=None, boxes_gt=None, masks_gt=None):
         """
@@ -156,63 +232,17 @@ class Sg2ImGenerator(nn.Module):
           imgs (N, 3, H, W) float32, boxes (N, O, 4), masks (N, O, M, M) or
           None, rel_scores (N, T, num_preds).
         """
-        objs = objs.long()
-        triples = triples.long()
-        s, p, o = triples[..., 0], triples[..., 1], triples[..., 2]
-        obj_vecs = self.obj_embeddings(objs)
-        obj_vecs_orig = obj_vecs
-        pred_vecs = self.pred_embeddings(p)
-        edges = torch.stack([s, o], dim=-1)
-        if self.gconv_num_layers == 0:
-            obj_vecs = self.gconv(obj_vecs)
-        else:
-            obj_vecs, pred_vecs = self.gconv(obj_vecs, pred_vecs, edges,
-                                             triple_mask, obj_mask)
-        if self.gconv_num_layers > 1:
-            obj_vecs, pred_vecs = self.gconv_net(obj_vecs, pred_vecs, edges,
-                                                 triple_mask, obj_mask)
-
-        boxes_pred = self.box_net(obj_vecs, mask=obj_mask)
-        masks_pred = None
-        N, O = objs.shape
-        if self.mask_size is not None and self.mask_size > 0:
-            mask_in = obj_vecs.reshape(N * O, -1, 1, 1)
-            flat_mask = None if obj_mask is None else obj_mask.reshape(N * O)
-            masks_pred = torch.sigmoid(
-                self.mask_net(mask_in, sample_mask=flat_mask)).reshape(
-                N, O, self.mask_size, self.mask_size)
-
-        rel_aux_in = torch.cat([gather_slots(boxes_pred, s),
-                                gather_slots(boxes_pred, o),
-                                gather_slots(obj_vecs_orig, s),
-                                gather_slots(obj_vecs_orig, o)], dim=-1)
-        rel_scores = self.rel_aux_net(rel_aux_in, mask=triple_mask)
-
-        H, W = self.image_size
-        dtype = self.compute_dtype or torch.float32
-        layout_boxes = boxes_pred if boxes_gt is None else boxes_gt
-        if masks_pred is None:
-            layout = boxes_to_layout(obj_vecs, layout_boxes, obj_mask, H,
-                                     W).to(dtype)
-        else:
-            # In bf16 mode the compose still sums in f32 and writes bf16:
-            # the layout is narrowed before the noise concat.
-            layout = masks_to_layout(
-                obj_vecs, layout_boxes,
-                masks_pred if masks_gt is None else masks_gt, obj_mask, H, W,
-                out_dtype=dtype)
-        # NHWC storage viewed as NCHW: a channels_last tensor, no copy.
-        layout = layout.permute(0, 3, 1, 2)
-        noise = None
-        if self.layout_noise_dim > 0:
-            if layout_noise is None:
-                raise ValueError("layout_noise (N, layout_noise_dim, H, W) is "
-                                 "required when layout_noise_dim > 0")
-            if self.crn_mode == "split_noise":
-                # The noise rides its own pyramid and conv0 kernel slice:
-                # the full-resolution concat is never stored.
-                noise = layout_noise.to(dtype)
-            else:
-                layout = torch.cat([layout, layout_noise.to(dtype)], dim=1)
+        obj_vecs, pred_vecs, obj_vecs_orig, s, o = self.encode_graph(
+            objs, triples, obj_mask, triple_mask)
+        boxes_pred, rel_scores = self.predict_boxes_rels(
+            obj_vecs, obj_vecs_orig, s, o, obj_mask, triple_mask)
+        masks_pred = self.predict_masks(obj_vecs, obj_mask)
+        # A generator without a mask head composes from the boxes alone.
+        masks = masks_pred if masks_gt is None or masks_pred is None \
+            else masks_gt
+        layout = self.compose_layout(
+            obj_vecs, boxes_pred if boxes_gt is None else boxes_gt, masks,
+            obj_mask)
+        layout, noise = self.crn_input(layout, layout_noise)
         imgs = self.refinement_net(layout, self.compute_dtype, noise=noise)
         return imgs, boxes_pred, masks_pred, rel_scores

@@ -178,27 +178,71 @@ def run_masked(layers, x, mask=None):
     return x
 
 
+class MLPSpec(NamedTuple):
+    """One layer of an MLP: 'linear', 'bn', 'act' or 'dropout', at its
+    upstream Sequential index."""
+    kind: str
+    torch_idx: int
+    din: int = 0
+    dout: int = 0
+
+
+def parse_mlp(dim_list: Sequence[int], activation: str = "relu",
+              batch_norm: str = "none", dropout: float = 0.0,
+              final_nonlinearity: bool = True) -> list[MLPSpec]:
+    """The layers and Sequential indices of upstream ``build_mlp``
+    (``sg2im/layers.py:216-232``): per step a Linear, then, unless it is
+    the last step without ``final_nonlinearity``, a BatchNorm when
+    ``batch_norm == 'batch'`` and the activation when it is 'relu' or
+    'leakyrelu' (other names add none), then a Dropout when ``dropout >
+    0``."""
+    specs: list[MLPSpec] = []
+    idx = 0
+    for i in range(len(dim_list) - 1):
+        din, dout = dim_list[i], dim_list[i + 1]
+        specs.append(MLPSpec("linear", idx, din, dout))
+        idx += 1
+        if i < len(dim_list) - 2 or final_nonlinearity:
+            if batch_norm == "batch":
+                specs.append(MLPSpec("bn", idx, dout, dout))
+                idx += 1
+            if activation in ("relu", "leakyrelu"):
+                specs.append(MLPSpec("act", idx))
+                idx += 1
+        if dropout > 0:
+            specs.append(MLPSpec("dropout", idx))
+            idx += 1
+    return specs
+
+
 class MLP(nn.Sequential):
-    """Linear (+ BatchNorm) + ReLU stack of upstream ``build_mlp`` as the
-    generator uses it: the activation is a true ReLU (``build_mlp`` checks
-    its own strings, unlike :func:`parse_activation`) and the final layer
-    ends in it too (``final_nonlinearity=True``), which is why the box
-    head's outputs are non-negative.  Sequential indices are upstream's:
-    Linear at 0, BatchNorm at 1 if any, ReLU next, and so on.
+    """Upstream ``build_mlp`` at the Sequential indices of
+    :func:`parse_mlp`.  ``activation`` 'relu' is a true ReLU and
+    'leakyrelu' slope 0.01 (``build_mlp`` checks its own strings, unlike
+    :func:`parse_activation`); the generator's MLPs take the defaults, so
+    the final layer ends in a ReLU too, which is why the box head's
+    outputs are non-negative.  ``dropout`` acts in train mode only.
 
     ``kernel_init``: 'torch_linear' (nn.Linear's default) or
     'kaiming_normal' (the GCN's), applied by :func:`init_weights`."""
 
-    def __init__(self, dim_list: Sequence[int], batch_norm: str = "none",
+    def __init__(self, dim_list: Sequence[int], activation: str = "relu",
+                 batch_norm: str = "none", dropout: float = 0.0,
+                 final_nonlinearity: bool = True,
                  kernel_init: str = "torch_linear"):
         layers = []
-        for din, dout in zip(dim_list[:-1], dim_list[1:]):
-            linear = nn.Linear(din, dout)
-            linear.kernel_init = kernel_init
-            layers.append(linear)
-            if batch_norm == "batch":
-                layers.append(BatchNorm(dout))
-            layers.append(nn.ReLU())
+        for spec in parse_mlp(dim_list, activation, batch_norm, dropout,
+                              final_nonlinearity):
+            if spec.kind == "linear":
+                layer = nn.Linear(spec.din, spec.dout)
+                layer.kernel_init = kernel_init
+            elif spec.kind == "bn":
+                layer = BatchNorm(spec.dout)
+            elif spec.kind == "act":
+                layer = nn.ReLU() if activation == "relu" else nn.LeakyReLU()
+            else:
+                layer = nn.Dropout(dropout)
+            layers.append(layer)
         super().__init__(*layers)
 
     def forward(self, x, mask=None):

@@ -34,6 +34,8 @@ import sys
 import numpy as np
 import torch
 
+from sg2im_tpu_torch.tools._measure import kernel_table
+
 CONFIGS = {"f32/legacy": {},
            "bf16/split": dict(bf16_compute=True, crn_mode="split")}
 PHASE_GROUPS = {"G forward": ("g_forward",),
@@ -97,28 +99,14 @@ def phase_times(trainer, state, batch, steps):
 def kernel_profile(trainer, state, batch, steps=3):
     """(kernel device ms per step, kernels per step, idle share of the
     steps' span, top ten kernels by device ms per step)."""
-    from torch.profiler import ProfilerActivity, profile
+    box = [state]
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(steps):
-            state, _ = trainer.step(state, batch)
-        end.record()
-        torch.cuda.synchronize()
-    span = start.elapsed_time(end) / steps
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in kernels) / 1e3 / steps
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return (busy, len(kernels) / steps, 1.0 - busy / span,
-            [(n[:80], ms / steps) for n, ms in top])
+    def step():
+        box[0], _ = trainer.step(box[0], batch)
+
+    t = kernel_table(step, "cuda", iters=steps)
+    return (t["device_ms"], t["kernels"], t["idle"],
+            [(k["name"], k["ms"]) for k in t["top"]])
 
 
 def card_name() -> str:

@@ -16,8 +16,9 @@ times each of those records as the CLI logs it: the steady-state rate is
 the steps between the first and last record over their wall time (it
 leaves out start-up and the final check_model; it includes epoch starts),
 beside the median interval between records.  Also measures the loader
-alone, one thread's decode, and one batch's host-to-card copy (pageable
-and pinned, the median of CUDA events around each of 10 copies), and
+alone, one thread's decode, and one batch's host-to-card copy (staged
+into one pageable and one pinned buffer, the median of CUDA events around
+each of 10 single copies, with GB/s), and
 lists every PyTorch operation that warned that it has no deterministic
 implementation.  Writes ``TRAIN_PROOF.md``
 and ``train_proof.json`` (the numbers, for ``tools.loader_bench
@@ -214,32 +215,54 @@ def run_cli(flags, run_dir):
             "nondeterministic": nondet}
 
 
+def stage_batch(batch: dict):
+    """Every array of ``batch``, in order, packed byte for byte into one
+    contiguous uint8 host tensor."""
+    import torch
+
+    return torch.from_numpy(np.concatenate(
+        [np.ascontiguousarray(v).reshape(-1).view(np.uint8)
+         for v in batch.values()]))
+
+
 def h2d_copy(batch: dict, device: str, reps: int = 10):
-    """One batch's host-to-card copy, every array of it, from pageable and
-    from pinned host memory: the median over ``reps`` copies of the CUDA
-    events around each -> {"bytes", "pageable_ms", "pinned_ms"}, or None
-    when ``device`` is not a card."""
+    """One batch's host-to-card copy as one staged buffer: the batch is
+    packed into one contiguous pageable host buffer (:func:`stage_batch`)
+    and into one pinned one, and a card buffer is allocated, all outside
+    the timing; then the median over ``reps`` single copies of each host
+    buffer into the card's, each between two CUDA events on the stream
+    that does the copy, queued behind a spin kernel so that the host's
+    enqueueing falls outside them -> {"bytes", "pageable_ms", "pinned_ms",
+    "pageable_gb_s", "pinned_gb_s"}, or None when ``device`` is not a
+    card."""
     import torch
 
     if torch.device(device).type != "cuda":
         return None
-    host = [torch.from_numpy(np.ascontiguousarray(v)) for v in batch.values()]
-    pinned = [t.pin_memory() for t in host]
-    out = {"bytes": int(sum(t.numel() * t.element_size() for t in host))}
-    for name, src, non_blocking in (("pageable_ms", host, False),
-                                    ("pinned_ms", pinned, True)):
+    host = stage_batch(batch)
+    pinned = host.pin_memory()
+    out = {"bytes": int(host.numel())}
+    dst = torch.empty_like(host, device=device)
+    stream = torch.cuda.current_stream(device)
+    for name, src, non_blocking in (("pageable", host, False),
+                                    ("pinned", pinned, True)):
         times = []
-        for _ in range(reps + 1):  # the first one warms the allocator
+        for _ in range(reps + 1):  # the first one warms the copy path
             torch.cuda.synchronize(device)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for t in src:
-                t.to(device, non_blocking=non_blocking)
-            b.record()
+            # A few ms of spinning ahead of the events: the host enqueues
+            # both events and the copy before the card reaches them, so
+            # the span holds the copy and not the host's enqueueing.
+            torch.cuda._sleep(10_000_000)
+            a.record(stream)
+            dst.copy_(src, non_blocking=non_blocking)
+            b.record(stream)
             torch.cuda.synchronize(device)
             times.append(a.elapsed_time(b))
-        out[name] = float(np.median(times[1:]))
+        ms = float(np.median(times[1:]))
+        out[f"{name}_ms"] = ms
+        out[f"{name}_gb_s"] = out["bytes"] / ms / 1e6
     return out
 
 

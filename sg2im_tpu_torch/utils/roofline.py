@@ -1,0 +1,268 @@
+"""The card's roofline: published peaks, the closed-form bounds of the hand
+kernels, FLOP counting and per-section rows.
+
+One source for ``chip_smoke.py`` and the measurement tools
+(``sg2im_tpu_torch.tools``).  XLA's cost model gave the JAX package each
+section's operations and bytes; PyTorch has none, so here
+
+* **FLOPs** come from ``torch.utils.flop_counter.FlopCounterMode``'s
+  formulas for the work that passes through the dispatcher (cuDNN
+  convolutions, cuBLAS matmuls, their backward), kept apart by the type
+  whose peak each runs at (:data:`TYPE_PEAKS`), plus, per launch, the
+  closed form of a hand kernel, which the dispatcher does not see
+  (:class:`FlopCounter`'s ``per_launch``: the tools give K1's, the only
+  hand kernel with operations on a counted section; K3 has none).  On the
+  CPU a wrapper runs its kernel's plain version, whose matmuls the
+  dispatcher counts as the closed form, so a forward counts the same on
+  either device.  K1's backward recomputes its forward in plain PyTorch
+  before the vector-Jacobian product, on the card as in the JAX
+  package's ``custom_vjp``, and both are counted; autograd of the CPU's
+  plain path has no recompute.  Elementwise work, norms and reductions
+  count 0 operations.  A 'same' convolution counts its padded taps
+  (2 N H W Cin Co k^2), where XLA's ``cost_analysis()`` leaves them out
+  (17.33 against 18.87 MFLOP for a 3x3 conv at 2x16x16x32 -> 64); a
+  matmul counts the same in both;
+* **bytes** are a lower bound (:func:`tensor_bytes`): the section's inputs,
+  parameters and outputs, each read or written once, as
+  ``memory_analysis()`` gave the JAX package's train-step roofline.
+
+:func:`section_row` turns (ms, FLOPs by type, bytes) into a row with the
+keys of a ``PERF.json`` row beside the speed of light of
+``scripts/roofline_train.py`` against both the data sheet's peaks and peaks
+measured in the same run.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# device memory bytes/s, bf16 tensor FLOP/s, int8 tensor OP/s, TF32 tensor
+# FLOP/s, f32 FLOP/s outside the tensor cores.
+HBM_BYTES = 3.35e12
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
+TF32_FLOPS = 495e12
+F32_FLOPS = 67e12
+# The peak of each operation type FlopCounter keeps apart.
+TYPE_PEAKS = {"bf16": BF16_FLOPS, "int8": INT8_OPS, "tf32": TF32_FLOPS,
+              "f32": F32_FLOPS}
+
+_ELEM_SIZE = {"bfloat16": 2, "float32": 4, "int8": 1}
+
+
+def roofline_ms(nbytes, ops, peak):
+    """The least time for moving ``nbytes`` and doing ``ops`` at ``peak``
+    per second: (ms, "bytes" or "operations", whichever bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES, ops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def layout_bounds(N, O, M, H, W, D, weights):
+    """(bytes, f32 operations) of one layout compose: boxes (or the warp
+    weights Wy, Wx), masks and vecs read once, the f32 layout written once;
+    per object the coefficients Wy . mask . Wx^T, then their sum of the
+    object vectors."""
+    inputs = N * O * (M * M + D) + (N * O * (H + W) * M if weights
+                                    else N * O * 4)
+    nbytes = 4 * (inputs + N * H * W * D)
+    ops = 2 * N * O * (H * M * M + H * W * M) + 2 * N * O * H * W * D
+    return nbytes, ops
+
+
+def relayout_bounds(cases):
+    """{entry: (bound ms, bound by)} of K3 summed over ``cases``, each
+    (entry, NCHW shape, dtype name, ...): each tensor read once and
+    written once."""
+    out = {}
+    for entry, shape, dtype, *_ in cases:
+        nbytes = 2 * _ELEM_SIZE[dtype] * int(np.prod(shape))
+        out[entry] = out.get(entry, 0.0) + roofline_ms(nbytes, 0, 1.0)[0]
+    return {entry: (ms, "bytes") for entry, ms in out.items()}
+
+
+def conv_bounds(N, H, W, Cin, Co, elem_size):
+    """(bytes, operations) of one 3x3 conv: x and the weight read once, the
+    f32 output written once (the scale / bias / dq vectors are noise)."""
+    nbytes = N * H * W * Cin * elem_size + 9 * Cin * Co * elem_size \
+        + N * H * W * Co * 4
+    return nbytes, 2 * N * H * W * 9 * Cin * Co
+
+
+def _op_type(func_packet, args) -> str:
+    """The peak an operation is held to, from its first tensor argument's
+    type: 'bf16' (bf16 and f16), 'int8', or for float32 'tf32' where the
+    backend may round it to TF32 (cuDNN's flag for convolutions, the
+    matmul flag for the rest) and 'f32' otherwise.  float64 (only the
+    CPU's plain int8 conv) counts as 'f32'."""
+    t = next((a for a in args if isinstance(a, torch.Tensor)), None)
+    dtype = torch.float32 if t is None else t.dtype
+    if dtype in (torch.bfloat16, torch.float16):
+        return "bf16"
+    if dtype == torch.int8:
+        return "int8"
+    if dtype == torch.float32:
+        tf32 = (torch.backends.cudnn.allow_tf32
+                if "convolution" in str(func_packet)
+                else torch.backends.cuda.matmul.allow_tf32)
+        if tf32:
+            return "tf32"
+    return "f32"
+
+
+class FlopCounter(FlopCounterMode):
+    """Operations of the work inside the block, by the type whose peak they
+    are held to (:data:`TYPE_PEAKS`): ``FlopCounterMode``'s formulas for
+    the dispatcher's matmuls and convolutions, and per launch of a hand
+    kernel the closed form the caller gives for it.
+
+        with FlopCounter({layout_compose: (ops, "f32")}) as fc:
+            section()
+        fc.by_type   # {"bf16": ..., "f32": ...}
+        fc.kernels   # {"layout_compose": launches x ops}
+
+    ``per_launch`` maps a kernel's wrapper (its ``launches`` count) to
+    (operations of one launch, type).  A wrapper on the CPU runs its
+    plain version instead, which the dispatcher counts: each plain version
+    does its kernel's closed form in matmuls and convolutions, so a
+    forward counts the same on either device.
+    """
+
+    def __init__(self, per_launch: dict | None = None):
+        super().__init__(display=False)
+        self._per_launch = dict(per_launch or {})
+        self.by_type: dict[str, int] = {}
+        self.kernels: dict[str, int] = {}
+
+    def _add(self, kind: str, ops: int) -> None:
+        self.by_type[kind] = self.by_type.get(kind, 0) + int(ops)
+
+    def _count_flops(self, func_packet, out, args, kwargs):
+        # FlopCounterMode's hook for each operation it dispatches; its own
+        # per-module totals are not kept.
+        formula = self.flop_registry.get(func_packet)
+        if formula is not None:
+            self._add(_op_type(func_packet, args),
+                      formula(*args, **kwargs, out_val=out))
+        return out
+
+    def __enter__(self):
+        self._before = {w: w.launches for w in self._per_launch}
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        out = super().__exit__(*exc)
+        for w, (ops, kind) in self._per_launch.items():
+            n = w.launches - self._before[w]
+            if n:
+                self.kernels[w.__name__] = n * int(ops)
+                self._add(kind, n * int(ops))
+        return out
+
+    @property
+    def total(self) -> int:
+        return sum(self.by_type.values())
+
+
+def tensor_bytes(*trees) -> int:
+    """Bytes of every tensor in ``trees`` (tensors, modules, dicts, lists,
+    tuples, dataclass-like objects with ``__dict__``), each storage region
+    counted once."""
+    seen, total = set(), 0
+
+    def visit(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            n = x.numel() * x.element_size()
+            key = (x.data_ptr(), n) if n else (id(x), 0)
+            if key not in seen:
+                seen.add(key)
+                total += n
+        elif isinstance(x, torch.nn.Module):
+            for t in list(x.parameters()) + list(x.buffers()):
+                visit(t)
+        elif isinstance(x, dict):
+            for v in x.values():
+                visit(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                visit(v)
+        elif hasattr(x, "__dict__") and not isinstance(x, type):
+            for v in vars(x).values():
+                visit(v)
+
+    for tree in trees:
+        visit(tree)
+    return total
+
+
+def peaks(measured: dict | None = None) -> dict:
+    """The peaks a section is held to: the data sheet's rate of each
+    operation type and its memory rate, with the run's measured rates
+    beside them (``measured``: ``tools._measure.measured_peaks``' dict, or
+    None)."""
+    out = {"sheet": {"flops": dict(TYPE_PEAKS), "bytes": HBM_BYTES},
+           "measured": None}
+    if measured:
+        out["measured"] = {
+            "flops": {"bf16": measured["bf16_matmul_flops"],
+                      "f32": measured["f32_matmul_flops"]},
+            "bytes": measured["scale_add_bytes"]}
+    return out
+
+
+def section_row(name: str, ms: float, flops: dict, min_bytes: float,
+                peaks: dict) -> dict:
+    """One section's row.  ``flops``: {operation type: operations}, as
+    :class:`FlopCounter` gives them.  ``PERF.json``'s keys: section, ms,
+    gflops, mbytes (``min_bytes`` / 1e6), tflops_s, gb_s, pct_mxu_peak
+    (the time the section's operations take at their types' peaks, each
+    type at its own, as a share of ms), pct_hbm_peak and bound ('mxu' or
+    'hbm', whichever share is larger), against the data sheet; then
+    ``scripts/roofline_train.py``'s speed of light, sol_ms = max(sum over
+    types of flops / its peak, bytes / bytes peak), pct_sol = 100 sol_ms /
+    ms and headroom_x = ms / sol_ms; and the same shares and speed of
+    light against the run's measured peaks under ``*_measured`` keys (None
+    when none were measured, or not for every type the section has)."""
+    s = ms / 1e3
+    total = sum(flops.values())
+    row = {"section": name, "ms": ms, "gflops": total / 1e9,
+           "gflops_by_type": {k: v / 1e9 for k, v in flops.items()},
+           "mbytes": min_bytes / 1e6,
+           "tflops_s": total / s / 1e12 if s > 0 else None,
+           "gb_s": min_bytes / s / 1e9 if s > 0 else None}
+    for tag, pk in (("", peaks["sheet"]),
+                    ("_measured", peaks.get("measured"))):
+        if not pk or s <= 0 or any(k not in pk["flops"]
+                                   for k, v in flops.items() if v):
+            for k in ("pct_mxu_peak", "pct_hbm_peak", "sol_ms", "pct_sol",
+                      "headroom_x"):
+                row[k + tag] = None
+            continue
+        t_ops = sum(v / pk["flops"][k] for k, v in flops.items() if v)
+        t_bytes = min_bytes / pk["bytes"]
+        sol = max(t_ops, t_bytes) * 1e3
+        row["pct_mxu_peak" + tag] = 100 * t_ops / s
+        row["pct_hbm_peak" + tag] = 100 * t_bytes / s
+        row["sol_ms" + tag] = sol
+        row["pct_sol" + tag] = 100 * sol / ms
+        row["headroom_x" + tag] = ms / sol if sol > 0 else math.inf
+        if not tag:
+            row["bound"] = "mxu" if t_ops >= t_bytes else "hbm"
+    row.setdefault("bound", None)
+    return row
+
+
+def max_share(row: dict, tag: str = "") -> float:
+    """The largest share of a peak or of the speed of light in ``row``, in
+    percent: against the data sheet (``tag`` ""), which a physical reading
+    cannot pass, or against the run's measured peaks ("_measured")."""
+    vals = [row.get(k + tag) for k in ("pct_mxu_peak", "pct_hbm_peak",
+                                       "pct_sol")]
+    vals = [v for v in vals if v is not None]
+    return max(vals) if vals else 0.0

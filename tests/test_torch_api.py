@@ -5,9 +5,17 @@ JAX functions on seeded numpy inputs, on the CPU: ``data.batching``
 ``T_max``, ``ops.sampling``'s ``normalized_to_pixel`` and ``grid_sample``,
 ``utils.metrics.grad_global_norm`` and ``utils.flags.float_tuple``.
 
+Also the subpackage namespaces: each JAX subpackage's ``__all__`` (nn,
+ops, utils, data, models) against the port's, the top level's lazy names,
+``nn.layers.parse_mlp``'s specs, and the port's ``MLP`` with each of the
+JAX one's arguments (activation, dropout in eval mode, final_nonlinearity,
+batch_norm) on weights carried across by the JAX package's
+``convert_variables_to_torch_state``.
+
 Bars: the batching and encoding exactly (round trips included), the flag
 type exactly, ``grid_sample`` within 1e-5 (out-of-bounds and non-finite
-taps included), ``grad_global_norm`` within 1e-6 relative.
+taps included), ``grad_global_norm`` within 1e-6 relative, the MLPs within
+2e-5.
 """
 
 import argparse
@@ -297,3 +305,91 @@ def test_float_tuple_rejects_what_the_jax_one_rejects():
 def test_graph_batch_fields_match_jax():
     assert [f.name for f in dataclasses.fields(batching.GraphBatch)] == [
         f.name for f in dataclasses.fields(jax_batching.GraphBatch)]
+
+
+@pytest.mark.parametrize("sub", ["nn", "ops", "utils", "data", "models"])
+def test_subpackage_all_matches_jax(sub):
+    import importlib
+
+    jax_mod = importlib.import_module(f"sg2im_tpu.{sub}")
+    port = importlib.import_module(f"sg2im_tpu_torch.{sub}")
+    assert sorted(port.__all__) == sorted(jax_mod.__all__)
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+
+
+def test_top_level_lazy_names_match_jax():
+    import sg2im_tpu
+    import sg2im_tpu_torch
+    from sg2im_tpu_torch.train.config import TrainConfig
+    from sg2im_tpu_torch.train.trainer import Trainer
+
+    for name in ("InferenceEngine", "Sg2ImGenerator", "Trainer",
+                 "TrainConfig"):
+        assert getattr(sg2im_tpu, name).__name__ == name
+        assert getattr(sg2im_tpu_torch, name).__name__ == name
+    assert sg2im_tpu_torch.Trainer is Trainer
+    assert sg2im_tpu_torch.TrainConfig is TrainConfig
+    with pytest.raises(AttributeError):
+        sg2im_tpu_torch.NoSuchName
+
+
+MLP_CASES = [
+    ((6, 8, 5), {}),
+    ((6, 8, 5), {"activation": "leakyrelu"}),
+    ((6, 8, 7, 5), {"dropout": 0.3}),
+    ((6, 8, 5), {"final_nonlinearity": False}),
+    ((6, 8, 5), {"batch_norm": "batch", "dropout": 0.5,
+                 "final_nonlinearity": False}),
+    ((6, 8, 5), {"activation": "tanh", "batch_norm": "batch"}),
+    ((6, 5), {"activation": "leakyrelu", "final_nonlinearity": False}),
+]
+MLP_IDS = ["default", "leakyrelu", "dropout", "no_final", "bn_dropout",
+           "unknown_activation", "one_layer"]
+
+
+@pytest.mark.parametrize("dims, kw", MLP_CASES, ids=MLP_IDS)
+def test_parse_mlp_matches_jax(dims, kw):
+    from sg2im_tpu.nn import layers as jlayers
+    from sg2im_tpu_torch.nn import layers
+
+    got = layers.parse_mlp(dims, **kw)
+    want = jlayers.parse_mlp(dims, **kw)
+    assert [tuple(s) for s in got] == [
+        (s.kind, s.torch_idx, s.din, s.dout) for s in want]
+
+
+@pytest.mark.parametrize("dims, kw", MLP_CASES, ids=MLP_IDS)
+def test_mlp_arguments_match_jax(dims, kw):
+    import jax
+
+    from sg2im_tpu.ckpt.torch_convert import convert_variables_to_torch_state
+    from sg2im_tpu.nn import layers as jlayers
+    from sg2im_tpu_torch.nn import layers
+
+    x = np.random.RandomState(5).randn(3, 4, dims[0]).astype(np.float32)
+    jm = jlayers.MLP(dims, **kw)
+    variables = jm.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    rng = np.random.RandomState(6)
+
+    def stats(path, v):  # running statistics away from (0, 1)
+        name = path[-1].key
+        if name == "mean":
+            return (0.1 * rng.randn(*v.shape)).astype(np.float32)
+        if name == "var":
+            return rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+        return np.asarray(v)
+
+    variables = jax.tree_util.tree_map_with_path(stats, variables)
+    want = np.asarray(jm.apply(variables, jnp.asarray(x), train=False))
+    m = layers.MLP(dims, **kw)
+    m.load_state_dict(convert_variables_to_torch_state(variables),
+                      strict=True)
+    m.eval()
+    assert [type(layer).__name__ for layer in m] == [
+        {"linear": "Linear", "bn": "BatchNorm", "dropout": "Dropout",
+         "act": ("LeakyReLU" if kw.get("activation") == "leakyrelu"
+                 else "ReLU")}[s.kind] for s in layers.parse_mlp(dims, **kw)]
+    with torch.no_grad():
+        got = m(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
