@@ -133,23 +133,33 @@ with a non-zero exit code:
    profile_turbo_frontier's bands.  Each exits 0, launches the kernels of
    its path, and every row is there and finite, with no share of a
    data-sheet peak or of the speed of light above SHARE_BAR.  Their output
-   goes to build/chip_smoke/measure_*.log.
+   goes to build/chip_smoke/measure_*.log;
+16. bench: sg2im_tpu_torch.tools.bench (the port's bench.py) at its
+   defaults (vg128 b128 bf16 / 'split' on bench.py's inputs, 10
+   iterations, 3 windows, the extras) and with --mode train: exit 0, every
+   key of bench.py's line (BENCH_r05.json's "parsed") plus card and
+   psnr_reference, every value finite and not null, the u8 PSNR of the
+   f32 and production engines against the CPU reference at least
+   PSNR_BAR, the trained checkpoint's gate passed, K1 launched in both
+   runs and the int8 conv in the turbo parts; its primary img/s beside
+   phase_vg128's bf16 / 'split' on other graphs.  Its output goes to
+   build/chip_smoke/bench_*.log.
 
 Each path (the turbo CLI, the vg128 requests of f32 and bf16/split, the
 turbo requests, the requests of each further CRN mode, the HTTP traffic of
 each server, the train steps of each mode, the uninterrupted CLI run of
 each mode, each sample_images run, the data-parallel ranks (counted in
 their processes), the world-1 NCCL steps and CLI run, each mesh engine's
-generate, each proof tool's run, each measurement tool's run) runs with
-the kernels' launch counts set to 0 just before it and read just after;
-the conv wrappers' padded input copies, counted the same way, must stay 0 on
-every path and in every timed batch-128 forward.
-The line before the last is a JSON summary of every ported kernel with
-its launches on those paths, its time beside its plain version's, its
-bound (the larger of its bytes over the card's memory rate and its
-operations over the peak rate of their type) and one PyTorch call of the
-same function where there is one; the last line is
-{"ok": true, "device": {...}}.  It needs no network and no JAX.
+generate, each proof tool's run, each measurement tool's run, each bench
+run) runs with the kernels' launch counts set to 0 just before it and read
+just after; the conv wrappers' padded input copies, counted the same way,
+must stay 0 on every path and in every timed batch-128 forward.
+A line gives each phase's seconds.  The line before the last is a JSON
+summary of every ported kernel with its launches on those paths, its time
+beside its plain version's, its bound (the larger of its bytes over the
+card's memory rate and its operations over the peak rate of their type)
+and one PyTorch call of the same function where there is one; the last
+line is {"ok": true, "device": {...}}.  It needs no network and no JAX.
 """
 
 from __future__ import annotations
@@ -877,6 +887,7 @@ def random_graphs(vocab, n, rng, n_objs=10, n_rels=21):
 
 
 def phase_vg128(torch, card, launches):
+    """-> {mode: b128 forward img/s}."""
     from sg2im_tpu_torch.data import encode_scene_graphs
     from sg2im_tpu_torch.inference import InferenceEngine, full_fp32
     from sg2im_tpu_torch.models import Sg2ImGenerator
@@ -988,6 +999,7 @@ def phase_vg128(torch, card, launches):
             fail(f"vg128 {mode} disagrees with {ref}: {p:.2f} dB")
 
     # Batch-128 forward throughput and peak memory.
+    img_s = {}
     batch = encode_scene_graphs(random_graphs(vocab, 128, rng), vocab,
                                 align=8)
     dev = torch.device("cuda")
@@ -1015,6 +1027,7 @@ def phase_vg128(torch, card, launches):
                 fail(f"{mode}: non-finite b128 images")
             check_no_padded_copies(f"the b128 {mode} forwards")
         ms = float(np.median(windows)) * 1e3
+        img_s[mode] = 128 / ms * 1e3
         peak = torch.cuda.max_memory_allocated()
         print(f"[vg128] b128 forward {mode}: {128 / ms * 1e3:.1f} img/s, "
               f"{ms:.2f} ms (median of 5 windows of 3, runs "
@@ -1023,6 +1036,7 @@ def phase_vg128(torch, card, launches):
               f"{(peak - resident) / 2 ** 30:.2f} GiB above the "
               f"{resident / 2 ** 30:.2f} GiB resident: every engine's "
               f"weights and the inputs), on {card}")
+    return img_s
 
 
 SERVE_WINDOW_MS = 30.0   # the smoke servers' --batch_window_ms
@@ -2982,6 +2996,70 @@ def phase_measure(torch, card, launches, work):
         for r in out["profile_turbo_frontier"]) + f"; on {card}")
 
 
+# sg2im_tpu_torch.tools.bench at its defaults and with --mode train:
+# {run: (arguments, kernels its run must launch)}.  The default run's
+# int8 conv launches are its turbo parts' (the PSNR's and turbo_img_s).
+BENCH_RUNS = {
+    "infer": ([], ("layout_compose_boxes", "conv3x3_s8")),
+    "train": (["--mode", "train"], ("layout_compose_boxes",)),
+}
+TRAIN_LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "value_runs")
+
+
+def _finite(value) -> bool:
+    vals = value if isinstance(value, list) else [value]
+    return bool(vals) and all(
+        v is not None and (not isinstance(v, float) or np.isfinite(v))
+        for v in vals)
+
+
+def phase_bench(torch, card, launches, work, vg128_img_s):
+    """The port's bench.py (sg2im_tpu_torch.tools.bench) on the card; see
+    the module docstring.  Its output goes to build/chip_smoke/bench_*.log."""
+    from sg2im_tpu_torch.tools import bench
+
+    logs = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(logs, exist_ok=True)
+    with open(os.path.join(REPO, "BENCH_r05.json")) as f:
+        bench_keys = list(json.load(f)["parsed"])
+    for run, (argv, needs) in BENCH_RUNS.items():
+        d = os.path.join(work, f"bench_{run}")
+        rc, wall, path, last = _tool(bench.main, argv + ["--out", d],
+                                     os.path.join(logs, f"bench_{run}.log"))
+        add_launches(launches, path)
+        check_no_padded_copies(f"bench {run}")
+        if rc != 0:
+            fail(f"bench {' '.join(argv)} exited {rc} "
+                 f"(build/chip_smoke/bench_{run}.log)")
+        line = json.loads(last)
+        want = (bench_keys + ["card", "psnr_reference"] if run == "infer"
+                else list(TRAIN_LINE_KEYS))
+        missing = [k for k in want if k not in line]
+        if missing:
+            fail(f"bench {run}: keys missing from its line: {missing}")
+        bad = {k: v for k, v in line.items() if not _finite(v)}
+        if bad:
+            fail(f"bench {run}: non-finite or null values {bad}")
+        unfired = [k for k in needs if path[k] == 0]
+        if unfired:
+            fail(f"bench {run} never launched {unfired}: {path}")
+        print(f"[bench] {run} {' '.join(argv)}: {wall:.1f} s, launches "
+              f"{ {k: v for k, v in path.items() if v} }; line "
+              f"{json.dumps(line)}")
+        if run == "infer":
+            for k in ("psnr_u8_db_vs_reference_f32",
+                      "psnr_u8_db_vs_reference"):
+                if line[k] < PSNR_BAR:
+                    fail(f"bench: {k} {line[k]:.2f} dB under {PSNR_BAR}")
+            if line["trained_gate_pass"] is not True:
+                fail("bench: the trained checkpoint's gate failed")
+            print(f"[bench] vg128 b{line['batch']} forward on bench.py's "
+                  f"inputs: {line['value']:.1f} img/s (runs "
+                  f"{[round(r, 1) for r in line['value_runs']]}) against "
+                  f"phase_vg128's bf16/split {vg128_img_s['bf16/split']:.1f}"
+                  f" on its 10-object, 21-relationship graphs; on {card}")
+
+
 def main() -> int:
     import torch
 
@@ -2990,24 +3068,50 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     card = phase_environment(torch)
+    seconds, clock = {}, [time.perf_counter()]
+
+    def done(phase):
+        now = time.perf_counter()
+        seconds[phase] = now - clock[0]
+        clock[0] = now
+
     phase_build()
+    done("build")
     launches = {}
     errs, times = phase_kernels(torch, card)
+    done("kernels")
     conv_errs, conv_times = phase_conv(torch, card)
+    done("conv")
     rl_errs, rl_times = phase_relayout(torch, card)
+    done("relayout")
     phase_checkpoint(torch, launches)
-    phase_vg128(torch, card, launches)
+    done("checkpoint")
+    vg128_img_s = phase_vg128(torch, card, launches)
+    done("vg128")
     phase_serve(torch, card, launches)
+    done("serve")
     in_memory = phase_train(torch, card, launches)
+    done("train")
     with tempfile.TemporaryDirectory() as work:
         coco_flags, run_dir = phase_train_cli(torch, card, launches,
                                               in_memory, work)
+        done("train_cli")
         phase_tools(torch, card, launches, coco_flags, run_dir, work)
+        done("tools")
         phase_parallel(torch, card, launches, coco_flags)
+        done("parallel")
         phase_proofs(torch, card, launches, work)
+        done("proofs")
     phase_mesh(torch, card, launches)
+    done("mesh")
     with tempfile.TemporaryDirectory() as work:
         phase_measure(torch, card, launches, work)
+        done("measure")
+        phase_bench(torch, card, launches, work, vg128_img_s)
+        done("bench")
+    print("[time] seconds per phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; all phases {sum(seconds.values()):.1f}")
     layout_src = "sg2im_tpu/ops/pallas/layout_kernel.py"
     conv_replaces = "scripts/proto_pallas_conv.py:122"
     relayout_src = "sg2im_tpu/ops/pallas/relayout_kernel.py"

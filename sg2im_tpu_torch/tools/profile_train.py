@@ -46,16 +46,17 @@ PHASE_GROUPS = {"G forward": ("g_forward",),
                                "d_img_optimizer")}
 
 
-def coco64(**kw):
-    """bench.py:155-184: vocab, TrainConfig and the batch (numpy, NHWC)."""
+def coco64(batch: int = 32, **kw):
+    """bench.py:155-184: vocab, TrainConfig and the batch (numpy, NHWC) of
+    ``batch`` rows."""
     from sg2im_tpu_torch.train.config import TrainConfig
 
     vocab = {"object_idx_to_name": [f"o{i}" for i in range(179)],
              "pred_idx_to_name": [f"p{i}" for i in range(7)]}
-    cfg = TrainConfig(dataset="coco", batch_size=32, image_size=(64, 64),
+    cfg = TrainConfig(dataset="coco", batch_size=batch, image_size=(64, 64),
                       pad_objects_to=16, pad_triples_to=24, **kw)
     rng = np.random.RandomState(0)
-    N, O, T = 32, 16, 24
+    N, O, T = batch, 16, 24
     lo = rng.uniform(0, 0.5, (N, O, 2)).astype(np.float32)
     batch = {
         "imgs": rng.randn(N, 64, 64, 3).astype(np.float32),

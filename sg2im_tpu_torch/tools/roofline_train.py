@@ -56,19 +56,20 @@ CONFIGS = {"baseline": {},
            "fast": dict(bf16_compute=True, crn_mode="split")}
 
 
-def tiny_coco(**kw):
+def tiny_coco(batch: int = 4, **kw):
     """A small COCO-shaped config and batch for host runs: 16 x 16 images,
-    GCN 16, CRN 16 -> 8, b4."""
+    GCN 16, CRN 16 -> 8, the first ``batch`` rows of the b32 draw (of a
+    larger draw past 32)."""
     import dataclasses
 
-    vocab, cfg, batch = coco64(**kw)
+    vocab, cfg, full = coco64(max(batch, 32), **kw)
     cfg = dataclasses.replace(
-        cfg, batch_size=4, image_size=(16, 16), embedding_dim=16,
+        cfg, batch_size=batch, image_size=(16, 16), embedding_dim=16,
         gconv_dim=16, gconv_hidden_dim=32, gconv_num_layers=2,
         refinement_network_dims=(16, 8), mask_size=4, layout_noise_dim=4,
         crop_size=8, d_obj_arch="C3-8-2", d_img_arch="C3-8-2")
-    rows = slice(0, 4)
-    batch = {k: v[rows] for k, v in batch.items()}
+    rows = slice(0, batch)
+    batch = {k: v[rows] for k, v in full.items()}
     batch["imgs"] = batch["imgs"][:, ::4, ::4]
     batch["masks"] = batch["masks"][:, :, ::4, ::4]
     return vocab, cfg, batch
