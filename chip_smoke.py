@@ -14,9 +14,11 @@ with a non-zero exit code:
    PyTorch versions on the card, in f32 and bf16 (flagship shapes, ragged
    cases, degenerate boxes with empty object slots, and for the weights
    entry dense signed weights, M = 32, H not a multiple of its band and
-   more objects than one group), then their time at the flagship batch-128
-   shape beside the plain versions, one einsum of the weights entry's
-   function and a fill_ of the output's bytes;
+   more objects than one group; for the boxes entry one object past a
+   group, O 1 and D 20 on ragged tiles), then their time at the flagship
+   batch-128 shape (the boxes entry with f32 and with bf16 output, each
+   beside its bound) beside the plain versions, one einsum of the weights
+   entry's function and a fill_ of the output's bytes;
 4. conv: both entries of the 3x3 conv kernel (bf16, and the turbo tier's
    int8) against their plain versions on the turbo path's shapes, the
    CRN shapes of the TPU prototype and the edges of the kernel's tile plan
@@ -158,8 +160,12 @@ A line gives each phase's seconds.  The line before the last is a JSON
 summary of every ported kernel with its launches on those paths, its time
 beside its plain version's, its bound (the larger of its bytes over the
 card's memory rate and its operations over the peak rate of their type)
-and one PyTorch call of the same function where there is one; the last
-line is {"ok": true, "device": {...}}.  It needs no network and no JAX.
+and one PyTorch call of the same function where there is one.  The boxes
+entry stands there twice, each with its own bound: layout_compose_boxes
+with all its launches, timed with an f32 output, and
+layout_compose_boxes_bf16 with its launches of a bf16 output, timed so;
+both counts mean what they mean on every path.  The last line is
+{"ok": true, "device": {...}}.  It needs no network and no JAX.
 """
 
 from __future__ import annotations
@@ -175,7 +181,14 @@ import time
 
 import numpy as np
 
-from sg2im_tpu_torch.tools._measure import time_ms, vg128_config
+from sg2im_tpu_torch.tools._measure import (
+    KERNEL_BAR,
+    LAYOUT_TIMED,
+    layout_inputs,
+    time_ms,
+    vg128_config,
+    within_one_rounding,
+)
 from sg2im_tpu_torch.utils.roofline import (
     BF16_FLOPS,
     F32_FLOPS,
@@ -190,7 +203,6 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "sg2im_tpu_torch/csrc/layout_compose.cu"
 CONV_SOURCE = "sg2im_tpu_torch/csrc/conv3x3.cu"
 RELAYOUT_SOURCE = "sg2im_tpu_torch/csrc/relayout.cu"
-KERNEL_BAR = 1e-5  # max abs error vs the plain version (tests/test_pallas.py)
 PSNR_BAR = 40.0    # u8 dB, the fidelity gate of the JAX package
 
 
@@ -257,27 +269,14 @@ KERNEL_CASES = {
     "M32 N3 O9 M32 64x96 D64": (3, 9, 32, 64, 96, 64, False, True),
     "band-ragged N2 O6 M6 37x72 D32": (2, 6, 6, 37, 72, 32, False, True),
     "groups N2 O120 M8 9x128 D64": (2, 120, 8, 9, 128, 64, False, False),
+    # The boxes entry's tile edges: one object past a group of 37, O 1 on
+    # an image narrower than a tile, D 20 (bf16 in 8-byte stores) on H and
+    # W not multiples of the tile.
+    "groups+1 N2 O38 M16 64x64 D128": (2, 38, 16, 64, 64, 128, False,
+                                       False),
+    "O1 N3 O1 M4 6x2 D24": (3, 1, 4, 6, 2, 24, False, False),
+    "ragged N2 O4 M16 33x47 D20": (2, 4, 16, 33, 47, 20, False, False),
 }
-
-
-def layout_inputs(torch, N, O, M, H, W, D, seed, degenerate=False,
-                  device="cuda"):
-    """boxes (N, O, 4), masks (N, O, M, M), vecs (N, O, D) from a seed;
-    vecs are zero on empty object slots, as the generator passes them."""
-    rng = np.random.RandomState(seed)
-    lo = rng.uniform(-0.1, 0.6, (N, O, 2)).astype(np.float32)
-    sz = rng.uniform(0.1, 0.5, (N, O, 2)).astype(np.float32)
-    boxes = np.concatenate([lo, lo + sz], -1)
-    obj_mask = np.ones((N, O), np.float32)
-    if degenerate:
-        boxes[:, ::3, 2] = boxes[:, ::3, 0]            # zero width
-        boxes[:, 1::4, 3] = boxes[:, 1::4, 1]          # zero height
-        boxes[:, 2] = 0.0                              # a point: 0/0 at t=0
-        boxes[0, 3] = [0.25, 0.25, 0.25, 0.25]
-        obj_mask[:, 5::7] = 0.0                        # empty slots
-    masks = rng.rand(N, O, M, M).astype(np.float32)
-    vecs = rng.randn(N, O, D).astype(np.float32) * obj_mask[..., None]
-    return tuple(torch.tensor(a, device=device) for a in (boxes, masks, vecs))
 
 
 def dense_weights(torch, N, O, M, H, W, seed, device="cuda"):
@@ -289,6 +288,12 @@ def dense_weights(torch, N, O, M, H, W, seed, device="cuda"):
     wy = rng.uniform(-1, 1, (N, O, H, M)).astype(np.float32) * scale
     wx = rng.uniform(-1, 1, (N, O, W, M)).astype(np.float32) * scale
     return torch.tensor(wy, device=device), torch.tensor(wx, device=device)
+
+
+def boxes_plan_text(plan) -> str:
+    return (f"TH {plan.TH} TX {plan.TX} G {plan.G} ({plan.groups} "
+            f"group{'s' if plan.groups > 1 else ''}) {plan.threads} threads, "
+            f"{plan.smem} B smem")
 
 
 def plan_text(plan) -> str:
@@ -309,7 +314,7 @@ def check_kernel_case(torch, name, N, O, M, H, W, D, degenerate, dense,
     from sg2im_tpu_torch.ops import layout_kernel as lk
     from sg2im_tpu_torch.ops.layout import box_warp_weights
 
-    boxes, masks, vecs = layout_inputs(torch, N, O, M, H, W, D, seed,
+    boxes, masks, vecs = layout_inputs(N, O, M, H, W, D, seed,
                                        degenerate)
     tents = box_warp_weights(boxes, H, W, M, M)
     wy, wx = dense_weights(torch, N, O, M, H, W, seed) if dense else tents
@@ -347,7 +352,7 @@ def check_kernel_case(torch, name, N, O, M, H, W, D, degenerate, dense,
         # bf16 output: within one bf16 rounding of the f32 result.
         bf_err = (out_bf16.float() - want).abs()
         line.append(f"bf16-out {bf_err.max().item():.3e};")
-        if not bool((bf_err <= want.abs() * 2.0 ** -8 + KERNEL_BAR).all()):
+        if not within_one_rounding(out_bf16, want):
             fail(f"{entry} entry's bf16 output off by more than one "
                  f"rounding on {name}")
         if degenerate:
@@ -359,14 +364,10 @@ def check_kernel_case(torch, name, N, O, M, H, W, D, degenerate, dense,
                      f"layout")
             line.append("degenerate-box output exactly 0;")
     line.append(f"max|out| {entries['weights'][1].abs().max().item():.2f}; "
-                f"weights plan {plan_text(lk.weights_plan(O, H, W, M, D))}")
+                f"boxes plan {boxes_plan_text(lk.boxes_plan(O, H, W, M, D))};"
+                f" weights plan {plan_text(lk.weights_plan(O, H, W, M, D))}")
     print(" ".join(line))
     return errs
-
-
-# (N, O, M, H, W, D) of the layout-compose timing: the serving path at
-# batch 128.
-LAYOUT_TIMED = (128, 16, 16, 128, 128, 128)
 
 
 def weights_library(torch, wy, wx, masks, vecs):
@@ -388,7 +389,7 @@ def phase_kernels(torch, card):
 
         # Time at the serving path's batch-128 shape.
         N, O, M, H, W, D = LAYOUT_TIMED
-        boxes, masks, vecs = layout_inputs(torch, N, O, M, H, W, D, seed=7)
+        boxes, masks, vecs = layout_inputs(N, O, M, H, W, D, seed=7)
         wy, wx = box_warp_weights(boxes, H, W, M, M)
         before = (lk.layout_compose.launches,
                   lk.layout_compose_weights.launches)
@@ -397,6 +398,11 @@ def phase_kernels(torch, card):
                 boxes, masks, vecs, H, W)),
             "boxes_plain": time_ms(lambda: lk.layout_compose_ref(
                 boxes, masks, vecs, H, W)),
+            # The main path's instance: bf16 output (every bf16 mode).
+            "boxes_bf16": time_ms(lambda: lk.layout_compose(
+                boxes, masks, vecs, H, W, out_dtype=torch.bfloat16)),
+            "boxes_bf16_plain": time_ms(lambda: lk.layout_compose_ref(
+                boxes, masks, vecs, H, W).to(torch.bfloat16)),
             "weights": time_ms(lambda: lk.layout_compose_weights(
                 wy, wx, masks, vecs)),
             "weights_plain": time_ms(
@@ -405,6 +411,16 @@ def phase_kernels(torch, card):
             "weights_library": time_ms(
                 lambda: weights_library(torch, wy, wx, masks, vecs)),
         }
+        # The bf16 instance's error on the timed inputs, within one
+        # rounding of the plain version as on every case above.
+        want = lk.layout_compose_ref(boxes, masks, vecs, H, W)
+        got = lk.layout_compose(boxes, masks, vecs, H, W,
+                                out_dtype=torch.bfloat16)
+        if not within_one_rounding(got, want):
+            fail("the boxes entry's bf16 output is off by more than one "
+                 "rounding at b128")
+        errs["boxes_bf16"] = (got.float() - want).abs().max().item()
+        del want, got
         lib_err = (weights_library(torch, wy, wx, masks, vecs)
                    - lk.layout_compose_weights_ref(wy, wx, masks, vecs)
                    ).abs().max().item()
@@ -415,9 +431,11 @@ def phase_kernels(torch, card):
                 or lk.layout_compose_weights.launches == before[1]):
             fail("a timed kernel was not launched")
         # The write's yardstick: a fill_ of as many bytes as the output.
-        dst = torch.empty((N, H, W, D), device="cuda")
-        times["fill"] = time_ms(lambda: dst.fill_(1.0))
-        del dst
+        for key, dtype in (("fill", torch.float32),
+                           ("fill_bf16", torch.bfloat16)):
+            dst = torch.empty((N, H, W, D), dtype=dtype, device="cuda")
+            times[key] = time_ms(lambda: dst.fill_(1.0))
+            del dst
     out_gb = N * H * W * D * 4 / 1e9
     plan = lk.weights_plan(O, H, W, M, D)
     bound, by = roofline_ms(*layout_bounds(*LAYOUT_TIMED, weights=True),
@@ -432,6 +450,19 @@ def phase_kernels(torch, card):
           f"{out_gb / times['weights'] * 1e3:.0f} GB/s; fill_ of "
           f"{out_gb:.3f} GB {times['fill']:.4f} "
           f"({out_gb / times['fill'] * 1e3:.0f} GB/s); on {card}")
+    for tag, key, elem, fill in (("f32", "boxes", 4, "fill"),
+                                 ("bf16", "boxes_bf16", 2, "fill_bf16")):
+        k1_bound, k1_by = roofline_ms(*layout_bounds(
+            *LAYOUT_TIMED, weights=False, out_elem=elem), F32_FLOPS)
+        gb = out_gb * elem / 4
+        print(f"[kernels] boxes-entry (K1) with {tag} output at b128: "
+              f"{times[key]:.4f} ms, {100 * k1_bound / times[key]:.1f}% of "
+              f"its {k1_bound:.4f} ms {k1_by} bound, plain "
+              f"{times[key + '_plain']:.4f} ms; {gb:.3f} GB written at "
+              f"{gb / times[key] * 1e3:.0f} GB/s against a fill_ of the "
+              f"same bytes {times[fill]:.4f} ms "
+              f"({gb / times[fill] * 1e3:.0f} GB/s); plan "
+              f"{boxes_plan_text(lk.boxes_plan(O, H, W, M, D))}; on {card}")
     print(f"[kernels] weights-entry at b128: "
           f"{100 * bound / times['weights']:.1f}% of its {bound:.4f} ms "
           f"{by} bound, {times['weights'] / times['weights_library']:.2f}x "
@@ -772,8 +803,16 @@ def kernel_wrappers():
             "relayout_d2s": rl.depth_to_space}
 
 
+# K1's counts in read_launches: all its launches, and those with a bf16
+# output among them.
+K1_COUNTS = ("layout_compose_boxes", "layout_compose_boxes_bf16")
+
+
 def reset_launches():
     """Every launch count, and the conv wrappers' padded copies, to 0."""
+    from sg2im_tpu_torch.ops import layout_kernel as lk
+
+    lk.layout_compose.launches_bf16 = 0
     for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
         if hasattr(wrapper, "padded_copies"):
@@ -790,7 +829,12 @@ def check_no_padded_copies(what):
 
 
 def read_launches() -> dict:
-    return {name: w.launches for name, w in kernel_wrappers().items()}
+    """Each wrapper's launches, and K1's bf16-output launches among its
+    own under ``layout_compose_boxes_bf16``."""
+    from sg2im_tpu_torch.ops import layout_kernel as lk
+
+    return {**{name: w.launches for name, w in kernel_wrappers().items()},
+            "layout_compose_boxes_bf16": lk.layout_compose.launches_bf16}
 
 
 def add_launches(total: dict, path: dict) -> None:
@@ -1587,7 +1631,7 @@ def check_k1_function(torch, boxes, masks, obj_mask, D, where):
         if dt == torch.float32:
             f32_err = fwd_err
         ok = (fwd_err <= KERNEL_BAR if dt == torch.float32 else
-              bool((diff <= want.abs() * 2.0 ** -8 + KERNEL_BAR).all()))
+              within_one_rounding(got, want))
         tag = "f32" if dt == torch.float32 else "bf16"
         line = [f"{where} K1 at b{N} O{O} M{M} 64x64 D{D}, {tag} out: "
                 f"forward vs the plain compose {fwd_err:.3e} (max |out| "
@@ -2164,7 +2208,7 @@ def phase_train_cli(torch, card, launches, in_memory, work):
             add_launches(launches, path)
             k1 = path["layout_compose_boxes"]
             others = {k: v for k, v in path.items()
-                      if k != "layout_compose_boxes" and v}
+                      if k not in K1_COUNTS and v}
             if k1 != k1_want or others:
                 fail(f"train CLI {mode}: K1 launched {k1} times, expected "
                      f"{k1_want}; other kernels {others}")
@@ -2775,8 +2819,7 @@ def phase_proofs(torch, card, launches, work):
             check_k1_function(torch, boxes, masks, obj_mask, D, "[proofs]")
 
     def others(path):
-        return {k: v for k, v in path.items()
-                if k != "layout_compose_boxes" and v}
+        return {k: v for k, v in path.items() if k not in K1_COUNTS and v}
 
     runs = {}
     for name, extra in (
@@ -3118,11 +3161,18 @@ def main() -> int:
     rl_bounds = relayout_bounds(RELAYOUT_PATH.values())
     # (name, source, replaces, max abs err, ms, plain ms, (bound ms, bound
     # by), one PyTorch call's ms or None)
+    # K1 stands twice, with the counts every path reads: layout_compose_boxes
+    # (all its launches, either output type) timed with an f32 output, and
+    # layout_compose_boxes_bf16 (those with a bf16 output) timed so.
     rows = [
         ("layout_compose_boxes", KERNEL_SOURCE, f"{layout_src}:241",
          errs["boxes"], times["boxes"], times["boxes_plain"],
          roofline_ms(*layout_bounds(*LAYOUT_TIMED, weights=False),
                      F32_FLOPS), None),
+        ("layout_compose_boxes_bf16", KERNEL_SOURCE, f"{layout_src}:241",
+         errs["boxes_bf16"], times["boxes_bf16"], times["boxes_bf16_plain"],
+         roofline_ms(*layout_bounds(*LAYOUT_TIMED, weights=False,
+                                    out_elem=2), F32_FLOPS), None),
         ("layout_compose_weights", KERNEL_SOURCE, f"{layout_src}:89",
          errs["weights"], times["weights"], times["weights_plain"],
          roofline_ms(*layout_bounds(*LAYOUT_TIMED, weights=True),

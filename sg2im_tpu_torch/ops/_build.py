@@ -38,7 +38,7 @@ _INT = ctypes.c_int
 SOURCES = {
     "layout_compose.cu": {
         "sg2im_layout_compose_boxes":
-            [_PTR, _PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR],
+            [_PTR, _PTR, _PTR, _PTR] + [_INT] * 10 + [_PTR],
         "sg2im_layout_compose_weights":
             [_PTR, _PTR, _PTR, _PTR, _PTR] + [_INT] * 12 + [_PTR],
     },

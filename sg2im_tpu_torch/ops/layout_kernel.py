@@ -10,15 +10,17 @@ their launch counters.
 into an (N, H, W, D) NHWC tensor.  They replace the TPU kernels of
 ``sg2im_tpu/ops/pallas/layout_kernel.py``: ``fused_layout_compose_v2`` and
 ``fused_layout_compose``.  The CUDA source is ``csrc/layout_compose.cu``; its
-header says why the kernels are bound by the output write and what each
-design does about it.  ``weights_plan`` is the weights kernel's cut of one
-call (bands of rows, column tiles, object groups and chunks); the wrapper
-passes it to the launch.
+notes say what bounds each kernel and what each design does about it.
+``boxes_plan`` and ``weights_plan`` are the two kernels' cuts of one call
+(bands of rows, column tiles, object groups); each wrapper passes its plan
+to the launch.
 
 For a CUDA tensor each wrapper launches the kernel or raises; for a CPU
 tensor it computes the plain version (``layout_compose_ref``,
 ``layout_compose_weights_ref``), which materialises the (N, O, H, W) warp.
-``<wrapper>.launches`` counts kernel launches and nothing else.
+``<wrapper>.launches`` counts kernel launches and nothing else;
+``layout_compose.launches_bf16`` counts those of them with a bfloat16
+output.
 
 Gradients: each wrapper is a ``torch.autograd.Function`` whose forward is
 the kernel (the plain version on the CPU) and whose backward recomputes the
@@ -31,6 +33,7 @@ A call that needs no gradient launches the kernel without the Function.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -39,8 +42,16 @@ from sg2im_tpu_torch.ops.sampling import separable_sample
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
+# The boxes kernel's constants (csrc/layout_compose.cu).
+B_THREADS = 256      # threads per block at most
+B_X_PER, B_D_PER = 4, 8  # output pixels (along a row) x channels of a thread
+B_MAX_TH = 32        # output rows per block
+B_MAX_TX = 128       # output columns per block
+B_TILE_PIX = 512     # output pixels per block that boxes_plan aims at
+B_SMEM_BUDGET = 76800  # bytes of shared memory: three blocks per SM
+
 # The weights kernel's constants (csrc/layout_compose.cu).
-TILE_D = 128         # channels per block
+TILE_D = 128         # channels per block (both kernels)
 W_THREADS = 256      # threads per block at most
 X_PER, D_PER = 8, 4  # output pixels (along a row) x channels of one thread
 MAX_BAND = 32        # output rows per block
@@ -72,6 +83,75 @@ class WeightsPlan(NamedTuple):
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+class BoxesPlan(NamedTuple):
+    """How the boxes kernel cuts one call: blocks of TH output rows by TX
+    columns (powers of two) by TILE_D channels; per block, objects in
+    ``groups`` groups of G, each group's masks, vectors and taps staged and
+    its (G, TH, TX) coefficients built, then per pass of ``pgs`` groups of
+    4 pixels of a row the sums of all of the group's objects, stored from
+    registers.  Groups of G < O only where the tile is one pass, so the
+    sums carry over in registers.  ``smem``: dynamic shared memory bytes,
+    as the source's ``make_boxes_plan`` computes them."""
+    TH: int
+    TX: int
+    G: int
+    d_groups: int
+    pgs: int
+    threads: int
+    n_bands: int
+    x_tiles: int
+    d_tiles: int
+    groups: int
+    smem: int
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
+
+
+def boxes_smem(G: int, TH: int, TX: int, M: int, d_groups: int) -> int:
+    """Shared memory bytes of a boxes tile: coefficients (G, TH, TX), x and
+    y taps as float4s, vectors (G, 8 d_groups) and masks (G, M, M), all
+    float32."""
+    return 4 * G * (TH * TX + 4 * TX + 4 * TH + B_D_PER * d_groups + M * M)
+
+
+@functools.lru_cache(maxsize=256)
+def boxes_plan(O: int, H: int, W: int, M: int, D: int) -> BoxesPlan:
+    """The boxes kernel's plan, cached (the wrapper asks on every launch).
+
+    Tiles are at most B_TILE_PIX pixels, no wider or taller than the image
+    rounded up to a power of two, and at least one pass of the block's
+    threads where the image allows.  Of the tiles that hold every object in
+    B_SMEM_BUDGET: the largest, then the one with the fewest taps per pixel
+    ((TH + TX) / (TH TX)), then the wider.  Where none does, groups of G < O
+    objects on the tile of one pass."""
+    d_groups = _cdiv(min(D, TILE_D), B_D_PER)
+    one_pass = B_X_PER * (B_THREADS // d_groups)
+    tx_cap = min(B_MAX_TX, max(B_X_PER, _pow2_at_least(W)))
+    th_cap = min(B_MAX_TH, _pow2_at_least(H))
+    least = min(B_TILE_PIX, 1 << one_pass.bit_length() - 1, tx_cap * th_cap)
+    tiles = [(TH, TX) for TX in (4, 8, 16, 32, 64, 128) if TX <= tx_cap
+             for TH in (1, 2, 4, 8, 16, 32) if TH <= th_cap
+             and least <= TH * TX <= B_TILE_PIX]
+
+    def best(cands):
+        return max(cands, key=lambda t: (t[0] * t[1], -(t[0] + t[1]), t[1]))
+
+    fit = [t for t in tiles
+           if boxes_smem(O, *t, M, d_groups) <= B_SMEM_BUDGET]
+    if fit:
+        (TH, TX), G = best(fit), O
+    else:
+        TH, TX = best(t for t in tiles if t[0] * t[1] <= one_pass)
+        G = next(g for g in range(O - 1, 0, -1)
+                 if boxes_smem(g, TH, TX, M, d_groups) <= B_SMEM_BUDGET)
+    pgs = min(one_pass, TH * TX) // B_X_PER
+    return BoxesPlan(TH, TX, G, d_groups, pgs, d_groups * pgs, _cdiv(H, TH),
+                     _cdiv(W, TX), _cdiv(D, TILE_D), _cdiv(O, G),
+                     boxes_smem(G, TH, TX, M, d_groups))
 
 
 def wx_row_pitch(M: int) -> tuple[int, int]:
@@ -221,18 +301,19 @@ def _launch_boxes(boxes, masks, vecs, H, W, out_dtype):
                          N, O, M, H, W, out_dtype)
     from sg2im_tpu_torch.ops._build import load_library
 
-    lib = load_library()
+    plan = boxes_plan(O, H, W, M, D)
     out = torch.empty((N, H, W, D), dtype=out_dtype, device=vecs.device)
     with torch.cuda.device(vecs.device):
-        rc = lib.sg2im_layout_compose_boxes(
+        rc = load_library().sg2im_layout_compose_boxes(
             boxes.data_ptr(), masks.data_ptr(), vecs.data_ptr(),
             out.data_ptr(), N, O, H, W, M, D,
-            int(out_dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), plan.TH, plan.TX, plan.G,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sg2im_layout_compose_boxes launch failed: "
                            f"cudaError {rc}")
     layout_compose.launches += 1
+    layout_compose.launches_bf16 += int(out_dtype == torch.bfloat16)
     return out
 
 
@@ -336,4 +417,5 @@ def layout_compose_weights(wy, wx, masks, vecs,
 
 
 layout_compose.launches = 0
+layout_compose.launches_bf16 = 0
 layout_compose_weights.launches = 0

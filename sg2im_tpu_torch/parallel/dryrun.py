@@ -91,6 +91,7 @@ def launch_counts() -> dict:
     from sg2im_tpu_torch.parallel import collectives
 
     return {"layout_compose_boxes": lk.layout_compose.launches,
+            "layout_compose_boxes_bf16": lk.layout_compose.launches_bf16,
             "layout_compose_weights": lk.layout_compose_weights.launches,
             "conv3x3_bf16": ck.conv3x3.launches,
             "conv3x3_s8": ck.conv3x3_int8.launches,

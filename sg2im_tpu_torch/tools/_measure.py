@@ -1,6 +1,7 @@
 """What the measurement tools share: their common flags, the card check,
 timing on either device, the profiler's kernel table, FLOP counting, the
-vg128 flagship and its bench inputs, and the report file.
+vg128 flagship and its bench inputs, the layout compose's timed instance
+with its inputs and bars, and the report file.
 
 A tool runs on the card (``--device cuda``, the default) and exits 1
 without one; ``--device cpu`` runs it on the host, at the small sizes the
@@ -19,6 +20,11 @@ import numpy as np
 import torch
 
 from sg2im_tpu_torch.utils.roofline import FlopCounter, layout_bounds
+
+# K1's timed instance: the flagship's batch-128 layout compose, as every
+# serving mode runs it (N, O, M, H, W, D).
+LAYOUT_TIMED = (128, 16, 16, 128, 128, 128)
+KERNEL_BAR = 1e-5  # max abs error vs the plain version (tests/test_pallas.py)
 
 
 def base_parser(doc: str) -> argparse.ArgumentParser:
@@ -143,6 +149,32 @@ def write_report(out_dir: str, tool: str, payload) -> str:
     with open(path, "w") as f:
         json.dump(payload, f, indent=1)
     return path
+
+
+def layout_inputs(N, O, M, H, W, D, seed, degenerate=False, device="cuda"):
+    """boxes (N, O, 4), masks (N, O, M, M), vecs (N, O, D) from a seed;
+    vecs are zero on empty object slots, as the generator passes them."""
+    rng = np.random.RandomState(seed)
+    lo = rng.uniform(-0.1, 0.6, (N, O, 2)).astype(np.float32)
+    sz = rng.uniform(0.1, 0.5, (N, O, 2)).astype(np.float32)
+    boxes = np.concatenate([lo, lo + sz], -1)
+    obj_mask = np.ones((N, O), np.float32)
+    if degenerate:
+        boxes[:, ::3, 2] = boxes[:, ::3, 0]            # zero width
+        boxes[:, 1::4, 3] = boxes[:, 1::4, 1]          # zero height
+        boxes[:, 2] = 0.0                              # a point: 0/0 at t=0
+        boxes[0, 3] = [0.25, 0.25, 0.25, 0.25]
+        obj_mask[:, 5::7] = 0.0                        # empty slots
+    masks = rng.rand(N, O, M, M).astype(np.float32)
+    vecs = rng.randn(N, O, D).astype(np.float32) * obj_mask[..., None]
+    return tuple(torch.tensor(a, device=device) for a in (boxes, masks, vecs))
+
+
+def within_one_rounding(out, want, bar: float = KERNEL_BAR) -> bool:
+    """Whether a bf16 output is within one rounding of the f32 ``want``
+    everywhere: |out - want| <= |want| 2^-8 + bar."""
+    return bool(((out.float() - want).abs()
+                 <= want.abs() * 2.0 ** -8 + bar).all())
 
 
 def vg128_config():

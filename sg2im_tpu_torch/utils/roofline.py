@@ -63,14 +63,15 @@ def roofline_ms(nbytes, ops, peak):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def layout_bounds(N, O, M, H, W, D, weights):
+def layout_bounds(N, O, M, H, W, D, weights, out_elem=4):
     """(bytes, f32 operations) of one layout compose: boxes (or the warp
-    weights Wy, Wx), masks and vecs read once, the f32 layout written once;
-    per object the coefficients Wy . mask . Wx^T, then their sum of the
-    object vectors."""
+    weights Wy, Wx), masks and vecs read once in f32, the layout written
+    once in elements of ``out_elem`` bytes (4 for f32, 2 for bf16); per
+    object the coefficients Wy . mask . Wx^T, then their sum of the object
+    vectors."""
     inputs = N * O * (M * M + D) + (N * O * (H + W) * M if weights
                                     else N * O * 4)
-    nbytes = 4 * (inputs + N * H * W * D)
+    nbytes = 4 * inputs + out_elem * N * H * W * D
     ops = 2 * N * O * (H * M * M + H * W * M) + 2 * N * O * H * W * D
     return nbytes, ops
 

@@ -146,7 +146,7 @@ def test_weights_plan_at_the_b128_shape():
 def _case_inputs(case, seed):
     N, O, M, H, W, D, degenerate, dense = case
     boxes, masks, vecs = chip_smoke.layout_inputs(
-        torch, N, O, M, H, W, D, seed, degenerate, device="cpu")
+        N, O, M, H, W, D, seed, degenerate, device="cpu")
     if dense:
         wy, wx = chip_smoke.dense_weights(torch, N, O, M, H, W, seed,
                                           device="cpu")
@@ -191,8 +191,8 @@ def test_dense_signed_weights_match_pallas(name):
     """The plain version against fused_layout_compose with weights that
     are not tents: dense, signed, every tap non-zero."""
     N, O, H, W, M, D = DENSE_SHAPES[name]
-    _, masks, vecs = chip_smoke.layout_inputs(torch, N, O, M, H, W, D,
-                                              seed=5, device="cpu")
+    _, masks, vecs = chip_smoke.layout_inputs(N, O, M, H, W, D, seed=5,
+                                              device="cpu")
     wy, wx = chip_smoke.dense_weights(torch, N, O, M, H, W, seed=5,
                                       device="cpu")
     assert (wy < 0).any() and (wx < 0).any() and bool((wy != 0).all())

@@ -48,8 +48,8 @@ def test_kernel_entries_match_plain_version(card, name):
 
 
 def test_masks_to_layout_auto_launches_the_kernel(card):
-    boxes, masks, vecs = chip_smoke.layout_inputs(torch, 2, 5, 8, 24, 40,
-                                                  16, seed=3)
+    boxes, masks, vecs = chip_smoke.layout_inputs(2, 5, 8, 24, 40, 16,
+                                                  seed=3)
     obj_mask = torch.tensor([[1, 1, 0, 1, 0], [1, 0, 1, 1, 1]],
                             dtype=torch.float32, device=card)
     before = lk.layout_compose.launches
@@ -63,8 +63,8 @@ def test_masks_to_layout_auto_launches_the_kernel(card):
 
 
 def test_masks_to_layout_with_weights_launches_the_weights_kernel(card):
-    boxes, masks, vecs = chip_smoke.layout_inputs(torch, 2, 5, 8, 24, 40,
-                                                  16, seed=3)
+    boxes, masks, vecs = chip_smoke.layout_inputs(2, 5, 8, 24, 40, 16,
+                                                  seed=3)
     weights = chip_smoke.dense_weights(torch, 2, 5, 8, 24, 40, seed=3)
     obj_mask = torch.tensor([[1, 1, 0, 1, 0], [1, 0, 1, 1, 1]],
                             dtype=torch.float32, device=card)
@@ -87,7 +87,7 @@ def test_weights_entry_refuses_a_tile_it_cannot_run(card):
     from sg2im_tpu_torch.ops._build import load_library
 
     N, O, M, H, W, D = 1, 3, 8, 16, 16, 8
-    _, masks, vecs = chip_smoke.layout_inputs(torch, N, O, M, H, W, D, seed=4)
+    _, masks, vecs = chip_smoke.layout_inputs(N, O, M, H, W, D, seed=4)
     wy, wx = chip_smoke.dense_weights(torch, N, O, M, H, W, seed=4)
     out = torch.empty((N, H, W, D), device=card)
     plan = lk.weights_plan(O, H, W, M, D)
@@ -109,9 +109,51 @@ def test_weights_entry_refuses_a_tile_it_cannot_run(card):
         assert launch(bad) == 1, bad
 
 
+def test_boxes_entry_refuses_a_tile_it_cannot_run(card):
+    """The boxes entry takes its tile (TH, TX, G) from the wrapper's
+    boxes_plan, runs other tiles it can hold (one object a group on a tile
+    of one pass included) to the same result, and refuses, with
+    cudaErrorInvalidValue (1), one that breaks the kernel's layout."""
+    from sg2im_tpu_torch.ops._build import load_library
+
+    N, O, M, H, W, D = 2, 5, 8, 24, 40, 16
+    boxes, masks, vecs = chip_smoke.layout_inputs(N, O, M, H, W, D, seed=4)
+    out = torch.empty((N, H, W, D), device=card)
+    want = lk.layout_compose_ref(boxes, masks, vecs, H, W)
+    plan = lk.boxes_plan(O, H, W, M, D)
+
+    def launch(TH, TX, G):
+        out.fill_(float("nan"))
+        rc = load_library().sg2im_layout_compose_boxes(
+            boxes.data_ptr(), masks.data_ptr(), vecs.data_ptr(),
+            out.data_ptr(), N, O, H, W, M, D, 0, TH, TX, G,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return rc
+
+    for tile in ((plan.TH, plan.TX, plan.G), (1, 32, 1), (8, 4, O),
+                 (2, 64, 2)):
+        assert launch(*tile) == 0, tile
+        assert (out - want).abs().max().item() <= chip_smoke.KERNEL_BAR, tile
+    # TX not a power of two, TH past 32, TX past 128 or under 4, G past O
+    # or 0, groups on a tile of many passes, shared memory past the budget.
+    for bad in ((4, 12, O), (64, 8, O), (4, 256, O), (4, 2, O),
+                (4, 8, O + 1), (4, 8, 0), (32, 32, 1), (32, 128, O)):
+        assert launch(*bad) == 1, bad
+
+
+def test_boxes_entry_counts_its_bf16_launches(card):
+    boxes, masks, vecs = chip_smoke.layout_inputs(2, 5, 8, 24, 40, 16,
+                                                  seed=2)
+    before = (lk.layout_compose.launches, lk.layout_compose.launches_bf16)
+    lk.layout_compose(boxes, masks, vecs, 24, 40)
+    lk.layout_compose(boxes, masks, vecs, 24, 40, out_dtype=torch.bfloat16)
+    assert (lk.layout_compose.launches,
+            lk.layout_compose.launches_bf16) == (before[0] + 2, before[1] + 1)
+
+
 def test_wrappers_reject_what_the_kernel_does_not_take(card):
-    boxes, masks, vecs = chip_smoke.layout_inputs(torch, 1, 3, 8, 16, 16, 8,
-                                                  seed=4)
+    boxes, masks, vecs = chip_smoke.layout_inputs(1, 3, 8, 16, 16, 8, seed=4)
     with pytest.raises(TypeError, match="float32"):
         lk.layout_compose(boxes, masks, vecs.double(), 16, 16)
     with pytest.raises(ValueError, match="contiguous"):
