@@ -92,7 +92,19 @@ with a non-zero exit code:
    counts, K1 launched once per batch; checkpoint_tools export of the
    checkpoint through run_model --device cuda, bit-equal to the snapshot
    of the same step;
-12. parallel: parallel.dryrun's two ranks with Gloo on CUDA tensors, both
+12. jax_checkpoint: the JAX store's format (ckpt.store's backend
+   'msgpack'): tests/fixtures/jax_ckpt_tiny, a state.msgpack the JAX
+   package wrote, loads on the card and its next step's losses match the
+   JAX package's (expected.npz) within TRAIN_LOSS_BAR relative +
+   JAX_LOSS_ATOL, K1 launched once; the f32 training CLI run's t=20
+   checkpoint, written again as state.msgpack, reads back bit-equal to its
+   state.pt with its histories (MB and seconds to write and read both
+   files printed), `cli.train --restore_from_checkpoint 1` resumes it to
+   CLI_STEPS twice with finite, bit-identical loss traces, K1 launched
+   and no other kernel, and its later checkpoint still state.msgpack;
+   sample_images and checkpoint_tools export open that directory, the
+   export's run_model images bit-equal to the snapshot of the same step;
+13. parallel: parallel.dryrun's two ranks with Gloo on CUDA tensors, both
    on cuda:0 (NCCL refuses two ranks on one card), on the tiny config
    (step, check_model, save, restore, step) and on the COCO-64 flagship at
    b32 (16 rows a rank), each against the one-process step on the same
@@ -101,7 +113,7 @@ with a non-zero exit code:
    world-1 NCCL group against Trainer.step without one, timed in turns,
    with its collectives per step; cli.train --multihost true at world 1
    on NCCL from torchrun's variables;
-13. mesh: vg128 at b128 on a mesh of two data
+14. mesh: vg128 at b128 on a mesh of two data
    rows on cuda:0 in f32, bf16 / 'split', turbo and bf16 / 'packed'
    against the single engine on each row's graphs with the same noise
    rows (f32 within MESH_F32_BAR, bf16 within 1 u8, turbo within 2 u8 and
@@ -111,7 +123,7 @@ with a non-zero exit code:
    mesh (2 x 2, the GCN hidden dimension split) against the replicated
    one: boxes at tests/test_parallel.py's rtol / atol, images within
    MESH_TP_U8;
-14. proofs: the training proofs through sg2im_tpu_torch.tools on their
+15. proofs: the training proofs through sg2im_tpu_torch.tools on their
    learnable disk dataset (2048 64 px JPEGs, each category a colour): K1's
    forward and Function gradients at the proofs' widths (D 64 and 128) on
    a batch of that data; train_proof in f32 / 'legacy' for PROOF_ITERS
@@ -125,7 +137,7 @@ with a non-zero exit code:
    card; loader_bench at the f32 proof's steady rate.  K1 launched exactly
    once per step and per final check_model, probe and gate forward, and
    no other kernel.  Their output goes to build/chip_smoke/proof_*.log;
-15. measure: every measurement tool of sg2im_tpu_torch.tools once at
+16. measure: every measurement tool of sg2im_tpu_torch.tools once at
    reduced counts (MEASURE_RUNS): bw_probe's stream rates; roofline's
    per-section rows of the vg128 b128 forward in bf16 / 'split' and bf16 /
    'packed' with its profile; profile_crn's per-stage times, its modes
@@ -136,7 +148,7 @@ with a non-zero exit code:
    its path, and every row is there and finite, with no share of a
    data-sheet peak or of the speed of light above SHARE_BAR.  Their output
    goes to build/chip_smoke/measure_*.log;
-16. bench: sg2im_tpu_torch.tools.bench (the port's bench.py) at its
+17. bench: sg2im_tpu_torch.tools.bench (the port's bench.py) at its
    defaults (vg128 b128 bf16 / 'split' on bench.py's inputs, 10
    iterations, 3 windows, the extras) and with --mode train: exit 0, every
    key of bench.py's line (BENCH_r05.json's "parsed") plus card and
@@ -150,7 +162,8 @@ with a non-zero exit code:
 Each path (the turbo CLI, the vg128 requests of f32 and bf16/split, the
 turbo requests, the requests of each further CRN mode, the HTTP traffic of
 each server, the train steps of each mode, the uninterrupted CLI run of
-each mode, each sample_images run, the data-parallel ranks (counted in
+each mode, each sample_images run, the JAX fixture's step and each CLI
+run resuming state.msgpack, the data-parallel ranks (counted in
 their processes), the world-1 NCCL steps and CLI run, each mesh engine's
 generate, each proof tool's run, each measurement tool's run, each bench
 run) runs with the kernels' launch counts set to 0 just before it and read
@@ -174,6 +187,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2269,6 +2283,9 @@ def phase_train_cli(torch, card, launches, in_memory, work):
             part = os.path.join(tmp, f"{tag}_part")
             _run_cli(run + ["--num_iterations", "20", "--output_dir", part],
                      os.path.join(logs, f"train_cli_{tag}_part.log"))
+            if mode == "f32/legacy":  # phase_jax_checkpoint's start
+                shutil.copytree(os.path.join(part, "checkpoint_state"),
+                                os.path.join(tmp, T20_CHECKPOINT))
             t1 = time.perf_counter()
             with open(os.path.join(logs, f"train_cli_{tag}_resume.log"),
                       "w") as log:
@@ -2664,21 +2681,26 @@ def _pngs(d):
     return names, [np.asarray(Image.open(os.path.join(d, n))) for n in names]
 
 
-def phase_tools(torch, card, launches, coco_flags, run_dir, work):
-    """sample_images and checkpoint_tools on the training CLI's outputs;
-    see the module docstring."""
-    from sg2im_tpu_torch.cli import checkpoint_tools, sample_images
-
+def sample_flags(coco_flags) -> list:
+    """sample_images' flags for the training CLI's synthetic val split."""
     def flag(name):
         return coco_flags[coco_flags.index(name) + 1]
 
-    data = ["--dataset", "coco",
+    return ["--dataset", "coco",
             "--coco_image_dir", flag("--coco_val_image_dir"),
             "--instances_json", flag("--coco_val_instances_json"),
             "--stuff_json", flag("--coco_val_stuff_json"),
             "--image_size", "64,64", "--batch_size", str(SAMPLE_BATCH),
             "--num_samples", str(SAMPLE_NUM), "--save_gt_imgs", "true",
             "--loader_num_workers", "4", "--device", "cuda"]
+
+
+def phase_tools(torch, card, launches, coco_flags, run_dir, work):
+    """sample_images and checkpoint_tools on the training CLI's outputs;
+    see the module docstring."""
+    from sg2im_tpu_torch.cli import checkpoint_tools, sample_images
+
+    data = sample_flags(coco_flags)
     snaps = sorted(n for n in os.listdir(run_dir) if "snapshot" in n)
     lst = os.path.join(work, "checkpoints.txt")
     with open(lst, "w") as f:
@@ -2743,11 +2765,195 @@ def phase_tools(torch, card, launches, coco_flags, run_dir, work):
           f"{snaps[-1]}'s; on {card}")
 
 
+# The JAX store's format (ckpt.store backend 'msgpack') on the card.
+JAX_FIXTURE = os.path.join(REPO, "tests", "fixtures", "jax_ckpt_tiny")
+T20_CHECKPOINT = "f32_legacy_t20"  # phase_train_cli's f32 run at t=20
+JAX_LOSS_ATOL = 2e-5   # absolute, beside TRAIN_LOSS_BAR (relative)
+
+
+def _finite_trace(name, records):
+    bad = [t for t, r in records.items()
+           if not all(np.isfinite(v) for k, v in r.items() if k != "kind")
+           or r["skipped_nonfinite"]]
+    if bad:
+        fail(f"{name}: non-finite or skipped at {bad}")
+
+
+def phase_jax_checkpoint(torch, card, launches, coco_flags, work):
+    """A JAX-written checkpoint resumes on the card, and the training CLI's
+    checkpoint goes to the JAX store's format and resumes from it; see the
+    module docstring."""
+    from sg2im_tpu_torch.ckpt import store
+    from sg2im_tpu_torch.cli import checkpoint_tools, sample_images
+    from sg2im_tpu_torch.cli import train as cli
+    from sg2im_tpu_torch.train.config import TrainConfig
+    from sg2im_tpu_torch.train.state import tensors
+    from sg2im_tpu_torch.train.trainer import Trainer
+
+    logs = os.path.join(REPO, "build", "chip_smoke")
+
+    # (a) The committed fixture (TINY after one JAX step) and the JAX
+    # package's losses for its next step.
+    state, meta = store.load_checkpoint(JAX_FIXTURE, "cuda")
+    tr = Trainer(TrainConfig.from_dict(meta["config"]), meta["vocab"],
+                 device="cuda")
+    with np.load(os.path.join(JAX_FIXTURE, "expected.npz")) as z:
+        expected = {k: z[k] for k in z.files}
+    batch = {k[len("batch/"):]: v for k, v in expected.items()
+             if k.startswith("batch/")}
+    reset_launches()
+    with cli.deterministic():
+        _, metrics = tr.step(state, batch)
+    path = read_launches()
+    add_launches(launches, path)
+    worst = 0.0
+    for k, want in expected.items():
+        if not k.startswith("loss/"):
+            continue
+        got = float(metrics[k[len("loss/"):]])
+        err = abs(got - float(want))
+        if not err <= JAX_LOSS_ATOL + TRAIN_LOSS_BAR * abs(float(want)):
+            fail(f"the JAX fixture's next step: {k} {got} against JAX's "
+                 f"{float(want)}")
+        worst = max(worst, err / (JAX_LOSS_ATOL + TRAIN_LOSS_BAR
+                                  * abs(float(want))))
+    if path["layout_compose_boxes"] != 1:
+        fail(f"the JAX fixture's step launched K1 "
+             f"{path['layout_compose_boxes']} times, not once")
+    n_losses = sum(k.startswith("loss/") for k in expected)
+    print(f"[jax_ckpt] tests/fixtures/jax_ckpt_tiny (the JAX package's "
+          f"state.msgpack of TINY at t={int(state.step)}) loaded on the "
+          f"card: its next step's {n_losses} losses match the JAX "
+          f"package's within {TRAIN_LOSS_BAR} relative + {JAX_LOSS_ATOL} "
+          f"absolute (worst {worst:.3f} of the bar); K1 "
+          f"launched once; on {card}")
+    del tr, state
+
+    # (b) The f32 COCO-64 b32 CLI run's t=20 checkpoint, written again in
+    # the JAX store's format, read back, and resumed twice by the CLI.
+    src = os.path.join(work, T20_CHECKPOINT)
+    with open(os.path.join(src, "meta.json")) as f:
+        src_meta = json.load(f)
+    tr = Trainer(TrainConfig.from_dict(src_meta["config"]),
+                 src_meta["vocab"], device="cuda")
+    state, meta = tr.load_checkpoint(src)
+    if int(state.step) != 20:
+        fail(f"{src} holds t={int(state.step)}, not 20")
+    runs = [os.path.join(work, f"jax_resume_{i}") for i in (0, 1)]
+    ckpt = os.path.join(runs[0], "checkpoint_state")
+    pt_dir = os.path.join(work, "jax_resume_pt")
+    seconds = {}
+    for backend, where in (("msgpack", ckpt), ("torch", pt_dir)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.save_checkpoint(state, where, extra=meta.get("extra"),
+                           arrays=meta.get("arrays"), backend=backend)
+        t1 = time.perf_counter()
+        back, back_meta = tr.load_checkpoint(where)
+        torch.cuda.synchronize()
+        seconds[backend] = (t1 - t0, time.perf_counter() - t1,
+                            os.path.getsize(os.path.join(
+                                where, store.STATE_FILES[backend])) / 1e6)
+        a, b = tensors(back), tensors(state)
+        a.pop("noise_rng", None)
+        b.pop("noise_rng", None)
+        diff = sorted(k for k in b if k not in a or a[k].dtype != b[k].dtype
+                      or not torch.equal(a[k], b[k]))
+        if set(a) != set(b) or diff:
+            fail(f"the t=20 checkpoint through backend {backend!r} differs "
+                 f"in {diff[:5] or sorted(set(a) ^ set(b))[:5]}")
+        arrays = back_meta.get("arrays") or {}
+        if (set(arrays) != set(meta.get("arrays") or {})
+                or not all(np.array_equal(arrays[k], v)
+                           for k, v in meta["arrays"].items())
+                or back_meta["extra"] != meta["extra"]):
+            fail(f"the t=20 checkpoint's histories through backend "
+                 f"{backend!r} differ")
+    del tr, state, back
+    torch.cuda.empty_cache()
+    shutil.copytree(runs[0], runs[1])
+    run = coco_flags + CLI_MODES["f32/legacy"] + [
+        "--print_every", "10", "--checkpoint_every", "20",
+        "--snapshot_every", "20", "--timing", "true", "--async_checkpoint",
+        "true", "--num_iterations", str(CLI_STEPS),
+        "--restore_from_checkpoint", "1"]
+    traces, k1 = [], []
+    for i, out in enumerate(runs):
+        reset_launches()
+        t0 = time.perf_counter()
+        _run_cli(run + ["--output_dir", out],
+                 os.path.join(logs, f"jax_resume_{i}.log"))
+        wall = time.perf_counter() - t0
+        path = read_launches()
+        check_no_padded_copies("the training CLI resuming state.msgpack")
+        add_launches(launches, path)
+        others = {k: v for k, v in path.items() if k not in K1_COUNTS and v}
+        k1.append(path["layout_compose_boxes"])
+        if k1[-1] < CLI_STEPS - 20 or others:
+            fail(f"the CLI resuming state.msgpack: K1 launched {k1[-1]} "
+                 f"times for {CLI_STEPS - 20} steps; other kernels {others}")
+        losses = _cli_log(out, "train")
+        _finite_trace("the CLI resuming state.msgpack", losses)
+        if sorted(losses) != list(range(30, CLI_STEPS + 1, 10)):
+            fail(f"the CLI resuming state.msgpack logged {sorted(losses)}")
+        files = os.listdir(os.path.join(out, "checkpoint_state"))
+        if "state.msgpack" not in files or "state.pt" in files:
+            fail(f"the resumed run's checkpoint holds {sorted(files)}, not "
+                 f"state.msgpack alone")
+        later, _ = store.load_checkpoint(os.path.join(out,
+                                                      "checkpoint_state"))
+        if int(later.step) != CLI_STEPS:
+            fail(f"the resumed run's checkpoint is at t={int(later.step)}")
+        traces.append((losses, wall))
+    if traces[0][0] != traces[1][0] or k1[0] != k1[1]:
+        fail("two resumes of one state.msgpack differ: "
+             f"{traces[0][0]} against {traces[1][0]}; K1 {k1}")
+
+    # (c) sample_images and checkpoint_tools export open the directory.
+    out = os.path.join(work, "jax_samples")
+    reset_launches()
+    if sample_images.main(sample_flags(coco_flags) + [
+            "--checkpoint", ckpt, "--output_dir", out]) != 0:
+        fail("sample_images on the state.msgpack directory failed")
+    path = read_launches()
+    add_launches(launches, path)
+    names, imgs = _pngs(os.path.join(out, "img"))
+    if not names or imgs[0].shape != (64, 64, 3) or not path[
+            "layout_compose_boxes"]:
+        fail(f"sample_images on the state.msgpack directory: {len(names)} "
+             f"PNGs, K1 {path['layout_compose_boxes']}")
+    exported = os.path.join(work, "jax_exported.pt")
+    if checkpoint_tools.main(["export", ckpt, exported]) != 0:
+        fail("checkpoint_tools export of the state.msgpack directory failed")
+    graphs = ["--scene_graphs_json", os.path.join(work, "graphs.json"),
+              "--noise", "zeros", "--device", "cuda"]
+    a = cli_images(["--checkpoint", exported] + graphs)
+    b = cli_images(["--checkpoint", os.path.join(
+        runs[0], f"snapshot_{CLI_STEPS:07d}.pt")] + graphs)
+    if a.shape != b.shape or not np.array_equal(a, b):
+        fail("run_model on the export of the state.msgpack directory "
+             "differs from the snapshot of the same step")
+    (mw, mr, mb), (pw, pr, pb) = seconds["msgpack"], seconds["torch"]
+    print(f"[jax_ckpt] the f32 COCO-64 b32 CLI run's t=20 checkpoint: "
+          f"state.msgpack {mb:.3f} MB written in {mw:.3f} s and read to the "
+          f"card in {mr:.3f} s, state.pt {pb:.3f} MB in {pw:.3f} s and "
+          f"{pr:.3f} s; both read back bit-equal with their histories; "
+          f"`cli.train --restore_from_checkpoint 1` resumed it to "
+          f"t={CLI_STEPS} twice ({traces[0][1]:.1f} s and "
+          f"{traces[1][1]:.1f} s), loss traces bit-identical, K1 launches "
+          f"{k1[0]} each, the later checkpoint state.msgpack; "
+          f"sample_images wrote {len(names)} PNGs and checkpoint_tools "
+          f"export gave run_model images bit-equal to the t={CLI_STEPS} "
+          f"snapshot's; on {card}")
+
+
 # The training proofs (sg2im_tpu_torch.tools) on their learnable disk
-# dataset, at the tools' defaults but for these iteration counts.
-PROOF_ITERS = 500          # each train_proof run (the tool's default)
+# dataset, at the tools' defaults but for these iteration counts, cut so
+# that the whole script stays well inside its time limit: a train_proof
+# run needs 8 loss records (200 steps) for its first-4 and last-4 means.
+PROOF_ITERS = 250          # each train_proof run (the tool's default 500)
 PROOF_REPEAT_ITERS = 200   # the second f32 run: a prefix of the first
-FIDELITY_ITERS = 1000      # trained_fidelity (the tool's default is 3000)
+FIDELITY_ITERS = 400       # trained_fidelity (the tool's default is 3000)
 # K1 launches of a run's final check_model: two b32 sweeps of 64 samples
 # (train and val) and a triptych of three G calls after each.
 PROOF_SWEEP_K1 = 2 + 2 + 3 * 2
@@ -3141,6 +3347,8 @@ def main() -> int:
         done("train_cli")
         phase_tools(torch, card, launches, coco_flags, run_dir, work)
         done("tools")
+        phase_jax_checkpoint(torch, card, launches, coco_flags, work)
+        done("jax_checkpoint")
         phase_parallel(torch, card, launches, coco_flags)
         done("parallel")
         phase_proofs(torch, card, launches, work)

@@ -5,13 +5,15 @@ checkpoint's ``model_state`` loads with ``load_state_dict(strict=True)`` as
 it is.  ``state_dict_from_jax`` maps the JAX package's flax variable trees
 (numpy or JAX arrays) onto the same names, the inverse of the JAX
 package's own converter (``sg2im_tpu/ckpt/torch_convert.py``), for the
-generator and both discriminators; ``train_state_from_jax`` carries a whole
-JAX ``TrainState`` across, optimizer moments included;
-``calibration_from_jax`` carries the int8 tier's activation scales across.
-``load_reference_bundle`` reads a warm start (the generator and both
-discriminators), ``export_reference_checkpoint`` writes the generator back
-in the reference layout; ``store`` saves and resumes the port's own train
-state.
+generator and both discriminators, and ``variables_to_jax`` maps them back;
+``train_state_from_jax`` carries a whole JAX ``TrainState`` across
+(optimizer moments included), live or as the JAX store's ``state.msgpack``
+restores it, and ``jax_tree_from_train_state`` is its inverse, the tree
+that file holds; ``calibration_from_jax`` carries the int8 tier's
+activation scales across.  ``load_reference_bundle`` reads a warm start
+(the generator and both discriminators), ``export_reference_checkpoint``
+writes the generator back in the reference layout; ``store`` saves and
+resumes train states in the port's format and in the JAX store's.
 """
 
 from __future__ import annotations
@@ -89,50 +91,206 @@ def state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
     return state
 
 
+def _field(node, name: str):
+    """A field of a JAX TrainState or optax state, live (attributes and
+    tuples) or as msgpack restores it (maps keyed by field name, tuples
+    keyed '0', '1', ...)."""
+    if isinstance(node, dict):
+        return node[name]
+    return node[int(name)] if name.isdigit() else getattr(node, name)
+
+
 def _adam_from_jax(opt_state, device):
     """optax (ScaleByAdamState, EmptyState) -> the port's AdamState, the
     moments in the port's parameter layout."""
     from sg2im_tpu_torch.train.state import AdamState
 
-    adam = opt_state[0]
+    adam = _field(opt_state, "0")
 
     def moments(tree):
         return {k: v.to(device) for k, v in
                 state_dict_from_jax({"params": tree}).items()}
 
     return AdamState(
-        count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32,
-                           device=device),
-        mu=moments(adam.mu), nu=moments(adam.nu))
+        count=torch.tensor(int(np.asarray(_field(adam, "count"))),
+                           dtype=torch.int32, device=device),
+        mu=moments(_field(adam, "mu")), nu=moments(_field(adam, "nu")))
 
 
-def train_state_from_jax(state, device="cpu", noise_seed: int = 0):
-    """A JAX ``TrainState`` (the JAX package's; leaves numpy or JAX arrays)
-    -> the port's ``TrainState`` on ``device``: the step, the three
-    models' parameters and BatchNorm statistics and each optimizer's
-    count and moments.  JAX's PRNG key has no counterpart: the layout-noise
-    generator starts from ``noise_seed`` (a step fed its noise explicitly
-    never reads it)."""
+def noise_seed_from_key(key) -> int:
+    """A JAX PRNG key's two uint32 words as one 64-bit seed, ``(k0 << 32) |
+    k1``: ``jax.random.PRNGKey(s)`` gives ``s`` back."""
+    k = np.asarray(key).astype(np.uint64)
+    if k.shape != (2,):
+        raise ValueError(f"a JAX PRNG key has shape (2,), not {k.shape}")
+    return (int(k[0]) << 32) | int(k[1])
+
+
+def train_state_from_jax(state, device="cpu", noise_seed: int | None = None):
+    """A JAX ``TrainState`` -> the port's ``TrainState`` on ``device``: the
+    step, the three models' parameters and BatchNorm statistics and each
+    optimizer's count and moments.  ``state`` is the JAX package's object
+    (leaves numpy or JAX arrays) or the map the JAX store's
+    ``state.msgpack`` holds (``ckpt.msgpack.msgpack_restore``), nil for a
+    discriminator that is off.
+
+    The seed contract: JAX's PRNG key has no counterpart in torch, so the
+    layout-noise generator starts from ``noise_seed``, by default the key's
+    two words as one seed (:func:`noise_seed_from_key`).  Two resumes of
+    one JAX checkpoint therefore draw the same noise; the noise of the JAX
+    run itself is not continued (a step fed its noise explicitly never
+    reads the generator)."""
     from sg2im_tpu_torch.train.state import TrainState
 
     device = torch.device(device)
+    if noise_seed is None:
+        noise_seed = noise_seed_from_key(_field(state, "rng"))
 
     def sd(variables):
         return {k: v.to(device) for k, v in
                 state_dict_from_jax(variables).items()}
 
-    fields = {"step": torch.tensor(int(np.asarray(state.step)),
+    fields = {"step": torch.tensor(int(np.asarray(_field(state, "step"))),
                                    dtype=torch.int32, device=device),
               "noise_rng": torch.Generator(device=device).manual_seed(
                   noise_seed).get_state(),
-              "g": sd(state.g_vars), "g_opt": _adam_from_jax(state.g_opt,
-                                                             device)}
+              "g": sd(_field(state, "g_vars")),
+              "g_opt": _adam_from_jax(_field(state, "g_opt"), device)}
     for name in ("d_obj", "d_img"):
-        if getattr(state, name + "_vars") is not None:
-            fields[name] = sd(getattr(state, name + "_vars"))
+        if _field(state, name + "_vars") is not None:
+            fields[name] = sd(_field(state, name + "_vars"))
             fields[name + "_opt"] = _adam_from_jax(
-                getattr(state, name + "_opt"), device)
+                _field(state, name + "_opt"), device)
     return TrainState(**fields)
+
+
+# The JAX package's module paths for upstream's names: a copy of the path
+# mappers of sg2im_tpu/ckpt/torch_convert.py (:99, :129, :140), which the
+# port does not import.  Each takes a name's parts without its leaf and
+# gives the flax path, or None for a name the JAX models do not hold.
+
+def _generator_path(parts):
+    head = parts[0]
+    if head in ("obj_embeddings", "pred_embeddings"):
+        return [head]
+    if head == "gconv":
+        if len(parts) == 1:  # nn.Linear (gconv_num_layers == 0)
+            return ["gconv"]
+        return ["gconv", parts[1], f"layer{parts[2]}"]
+    if head == "gconv_net":  # gconv_net.gconvs.{k}.net{1,2}.{i}
+        _, _, k, net, i = parts
+        return ["gconv_net", f"gconvs_{k}", net, f"layer{i}"]
+    if head in ("box_net", "rel_aux_net", "mask_net"):
+        return [head, f"layer{parts[1]}"]
+    if head == "refinement_net":
+        if parts[1] == "refinement_modules":  # ...{k}.net.{i}
+            _, _, k, _, i = parts
+            return ["refinement_net", f"refinement_modules_{k}", f"layer{i}"]
+        if parts[1] == "output_conv":
+            return ["refinement_net", f"output_conv_{parts[2]}"]
+    raise ValueError(f"unmapped generator name: {'.'.join(parts)}")
+
+
+def _patch_d_path(parts):
+    if parts[0] == "classifier":  # upstream's unused head
+        return None
+    if parts[0] == "cnn":
+        if len(parts) >= 4 and parts[2] == "net":  # a residual block
+            return ["cnn", f"layer{parts[1]}", f"layer{parts[3]}"]
+        return ["cnn", f"layer{parts[1]}"]
+    raise ValueError(f"unmapped PatchDiscriminator name: {'.'.join(parts)}")
+
+
+def _ac_d_path(parts):
+    rest = parts[1:]  # discriminator.{cnn.0.{i} | cnn.2 | *_classifier}
+    if parts[0] == "discriminator" and rest[0] == "cnn":
+        if rest[1] == "0":
+            if len(rest) >= 5 and rest[3] == "net":  # a residual block
+                return ["discriminator", "cnn_0", f"layer{rest[2]}",
+                        f"layer{rest[4]}"]
+            return ["discriminator", "cnn_0", f"layer{rest[2]}"]
+        if rest[1] == "2":
+            return ["discriminator", "cnn_2"]
+    if parts[0] == "discriminator" and rest[0] in ("real_classifier",
+                                                   "obj_classifier"):
+        return ["discriminator", rest[0]]
+    raise ValueError(f"unmapped AcCropDiscriminator name: {'.'.join(parts)}")
+
+
+_JAX_PATHS = {"g": _generator_path, "d_obj": _ac_d_path,
+              "d_img": _patch_d_path}
+
+
+def _put(tree, path, value):
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def variables_to_jax(state_dict, model: str, context=None) -> dict:
+    """Upstream-named tensors -> flax ``{'params', 'batch_stats'}`` of
+    float32 numpy arrays (``state_dict_from_jax``'s inverse; the JAX
+    package's ``convert_state_dict``): Linear weights (out, in) become
+    kernels (in, out), conv weights OIHW become HWIO, a BatchNorm's weight
+    and bias go under its ``bn/scale`` and ``bn/bias`` and its running
+    statistics into ``batch_stats``.  ``model``: 'g', 'd_obj' or 'd_img';
+    ``context`` (default ``state_dict``), the model's whole state dict,
+    tells a BatchNorm's weight by its running mean where ``state_dict``
+    holds parameters alone (Adam's moments)."""
+    path_of = _JAX_PATHS[model]
+    context = state_dict if context is None else context
+    params: dict = {}
+    stats: dict = {}
+    for key, t in state_dict.items():
+        *parts, leaf = key.split(".")
+        path = path_of(parts)
+        if path is None or leaf == "num_batches_tracked":
+            continue
+        arr = t.detach().cpu().numpy().astype(np.float32, copy=False)
+        if len(path) == 1 and path[0] in ("obj_embeddings",
+                                          "pred_embeddings"):
+            _put(params, path + ["embedding"], arr)
+        elif leaf in ("running_mean", "running_var"):
+            _put(stats, path + ["bn", leaf[len("running_"):]], arr)
+        elif f"{'.'.join(parts)}.running_mean" in context:
+            _put(params, path + ["bn", "scale" if leaf == "weight"
+                                 else "bias"], arr)
+        elif leaf == "weight":
+            _put(params, path + ["kernel"], np.ascontiguousarray(
+                arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T))
+        elif leaf == "bias":
+            _put(params, path + ["bias"], arr)
+        else:
+            raise ValueError(f"unknown leaf {leaf!r} of {key}")
+    return {"params": params, "batch_stats": stats} if stats \
+        else {"params": params}
+
+
+def jax_tree_from_train_state(state, seed: int = 0) -> dict:
+    """The port's ``TrainState`` -> the JAX package's ``TrainState`` as the
+    JAX store's ``state.msgpack`` holds it (:func:`train_state_from_jax`'s
+    inverse), numpy arrays on the host: ``step``, ``rng``, each model's
+    ``*_vars`` and its optax state ``{'0': {count, mu, nu}, '1': {}}``, nil
+    for a discriminator that is off.  The keys are those of the JAX
+    ``Trainer.init_state`` for the same config, as ``flax.serialization.
+    from_bytes`` wants.  ``rng`` is ``jax.random.PRNGKey(seed)``'s two
+    words: the generator's state has no JAX key."""
+    tree = {"step": np.asarray(int(state.step), np.int32),
+            "rng": np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                            np.uint32)}
+    for name in ("g", "d_obj", "d_img"):
+        sd, opt = getattr(state, name), getattr(state, name + "_opt")
+        vars_name = "g_vars" if name == "g" else name + "_vars"
+        if sd is None:
+            tree[vars_name] = tree[name + "_opt"] = None
+            continue
+        tree[vars_name] = variables_to_jax(sd, name)
+        tree[name + "_opt"] = {"0": {
+            "count": np.asarray(int(opt.count), np.int32),
+            "mu": variables_to_jax(opt.mu, name, sd)["params"],
+            "nu": variables_to_jax(opt.nu, name, sd)["params"]},
+            "1": {}}
+    return tree
 
 
 def calibration_from_jax(quant_collection) -> dict[str, float]:

@@ -10,7 +10,8 @@ and the port's native checkpoint directories.
     python -m sg2im_tpu_torch.cli.checkpoint_tools export NATIVE_DIR OUT.pt
 
 ``export`` writes the generator of a checkpoint directory of the port's
-Trainer (``ckpt.store``: ``state.pt`` and ``meta.json``) as a
+Trainer or of the JAX package's (``ckpt.store``: ``state.pt`` or
+``state.msgpack``, and ``meta.json``) as a
 reference-layout ``.pt`` that upstream's ``Sg2ImModel``, the JAX package's
 ``convert_checkpoint`` and the port's ``run_model`` read.  Everything
 runs on the host.
@@ -19,7 +20,6 @@ runs on the host.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -97,21 +97,20 @@ def clean(in_path: str, out_path: str):
 
 
 def export(native_dir: str, out_path: str):
-    """The generator of a native checkpoint directory as a reference-layout
-    .pt, with its training config as ``args``."""
+    """The generator of a native checkpoint directory (either format of
+    ``ckpt.store``) as a reference-layout .pt, with its training config as
+    ``args``."""
     from sg2im_tpu_torch.ckpt import export_reference_checkpoint
     from sg2im_tpu_torch.ckpt.store import load_checkpoint
     from sg2im_tpu_torch.train.config import TrainConfig
 
-    if not os.path.exists(os.path.join(native_dir, "state.pt")):
-        print(f"ERROR: {native_dir} is not a checkpoint directory of the "
-              f"port's Trainer (no state.pt)")
+    try:
+        state, meta = load_checkpoint(native_dir)
+    except ValueError as e:  # no state file of either Trainer
+        print(f"ERROR: not a checkpoint directory: {e}")
         return 1
-    state, meta = load_checkpoint(native_dir)
     cfg_dict = meta.get("config") or {}
-    fields = {f.name for f in dataclasses.fields(TrainConfig)}
-    config = TrainConfig(**{k: (tuple(v) if isinstance(v, list) else v)
-                            for k, v in cfg_dict.items() if k in fields})
+    config = TrainConfig.from_dict(cfg_dict)
     export_reference_checkpoint(out_path, state.g,
                                 config.generator_kwargs(), meta.get("vocab"),
                                 args=cfg_dict)

@@ -7,8 +7,9 @@ by default (counterpart of ``sg2im_tpu/cli/sample_images.py``, upstream
         --stuff_json ... --output_dir samples [--device cpu]
 
 Loads a reference-layout ``.pt`` or a checkpoint directory of the port's
-Trainer, rebuilds the dataset from the checkpoint's own training args (the
-args travel with the weights, upstream ``sample_images.py:76-109``), and
+Trainer or of the JAX package's (``state.msgpack``), rebuilds the dataset
+from the checkpoint's own training args (the args travel with the
+weights, upstream ``sample_images.py:76-109``), and
 writes ``img/img%06d.png`` (plus, on request, ``gt_img/``, GraphViz renders
 of the graphs under ``graphs/`` and ``data.npz`` of boxes, objects and
 masks, row i for image i).  ``--checkpoint_list`` names checkpoints or
@@ -27,7 +28,6 @@ running statistics it would move are discarded.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 
 import numpy as np
@@ -73,7 +73,8 @@ def build_parser():
 
 def load_bundle(path) -> dict:
     """{'model_kwargs', 'vocab', 'generator', 'args'} of a reference-layout
-    ``.pt`` or of a checkpoint directory of the port's Trainer."""
+    ``.pt`` or of a checkpoint directory of either Trainer (``ckpt.store``:
+    the port's ``state.pt`` or the JAX package's ``state.msgpack``)."""
     from sg2im_tpu_torch.ckpt import load_reference_bundle
 
     if not os.path.isdir(path):
@@ -81,14 +82,12 @@ def load_bundle(path) -> dict:
     from sg2im_tpu_torch.ckpt.store import load_checkpoint
     from sg2im_tpu_torch.train.config import TrainConfig
 
-    if not os.path.exists(os.path.join(path, "state.pt")):
-        raise SystemExit(f"{path}: not a checkpoint directory of the port's "
-                         "Trainer (no state.pt)")
-    state, meta = load_checkpoint(path)
+    try:
+        state, meta = load_checkpoint(path)
+    except ValueError as e:  # no state file of either Trainer
+        raise SystemExit(f"not a checkpoint directory: {e}") from None
     cfg = meta.get("config") or {}
-    fields = {f.name for f in dataclasses.fields(TrainConfig)}
-    config = TrainConfig(**{k: (tuple(v) if isinstance(v, list) else v)
-                            for k, v in cfg.items() if k in fields})
+    config = TrainConfig.from_dict(cfg)
     return {"model_kwargs": config.generator_kwargs(),
             "vocab": meta["vocab"], "generator": state.g, "args": cfg}
 
@@ -269,6 +268,8 @@ def run_checkpoint(args, checkpoint_path) -> int:
 
 
 def main(argv=None):
+    from sg2im_tpu_torch.ckpt.store import STATE_FILES
+
     args = build_parser().parse_args(argv)
     if args.checkpoint_list is None:
         run_checkpoint(args, args.checkpoint)
@@ -277,8 +278,9 @@ def main(argv=None):
         checkpoints = [ln.strip() for ln in f if ln.strip()]
     base = args.output_dir
     for i, ck in enumerate(checkpoints):
-        if os.path.isdir(ck) and not os.path.exists(
-                os.path.join(ck, "state.pt")):
+        if os.path.isdir(ck) and not any(
+                os.path.exists(os.path.join(ck, name))
+                for name in STATE_FILES.values()):
             # A snapshot directory (upstream sample_images.py:268-285):
             # every snapshot_* inside, in name order.
             for fn in sorted(os.listdir(ck)):

@@ -111,6 +111,15 @@ class TrainConfig:
     tensorboard_dir: str | None = None
     async_checkpoint: bool = False
 
+    @classmethod
+    def from_dict(cls, cfg: dict) -> "TrainConfig":
+        """A config from its JSON form (a checkpoint's ``meta.json``, the
+        port's or the JAX package's): lists become tuples, keys that are
+        not fields are left out."""
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: (tuple(v) if isinstance(v, list) else v)
+                      for k, v in cfg.items() if k in fields})
+
     @property
     def use_obj_discriminator(self) -> bool:
         return self.discriminator_loss_weight > 0 and self.d_obj_weight > 0

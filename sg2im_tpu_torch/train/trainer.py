@@ -351,23 +351,27 @@ class Trainer:
     # -- checkpoints -------------------------------------------------------
 
     def save_checkpoint(self, state: TrainState, path: str, extra=None,
-                        arrays=None, wait: bool = True):
+                        arrays=None, wait: bool = True,
+                        backend: str | None = None):
         """Write ``state`` under ``path`` (rank 0 alone in a data-parallel
         run, where every rank calls this: with ``wait`` no rank returns
-        before the files are written)."""
+        before the files are written).  ``backend``: 'torch', or 'msgpack'
+        for the JAX package's format; None keeps the directory's
+        (``ckpt.store``)."""
         from sg2im_tpu_torch.ckpt.store import save_checkpoint
 
         if self.rank == 0:
             save_checkpoint(path, state, config=self.config,
                             vocab=self.vocab, extra=extra, arrays=arrays,
-                            wait=wait)
+                            wait=wait, backend=backend)
         if self.group is not None and wait:
             # A barrier of the collectives this package uses.
             collectives.all_reduce(torch.zeros(1, device=self.device),
                                    self.group)
 
     def load_checkpoint(self, path: str):
-        """-> (state, meta); tensors land on the trainer's device."""
+        """-> (state, meta) from either format of ``ckpt.store``; tensors
+        land on the trainer's device."""
         from sg2im_tpu_torch.ckpt.store import load_checkpoint
 
         restored, meta = load_checkpoint(path, self.device)
