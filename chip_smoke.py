@@ -8,8 +8,9 @@ with a non-zero exit code:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, the TF32 flags;
-2. build: nvcc builds csrc/layout_compose.cu, csrc/conv3x3.cu and
-   csrc/relayout.cu for sm_90a, one process each, started together;
+2. build: nvcc builds csrc/layout_compose.cu, csrc/conv3x3.cu,
+   csrc/relayout.cu and csrc/threefry.cu for sm_90a, one process each,
+   started together;
 3. kernels: both entries of the layout-compose kernel against their plain
    PyTorch versions on the card, in f32 and bf16 (flagship shapes, ragged
    cases, degenerate boxes with empty object slots, and for the weights
@@ -30,6 +31,23 @@ with a non-zero exit code:
    bit-equal to their plain versions at the packed CRN's batch-128 shapes
    and on ragged and unaligned cases, then their time beside the plain
    version's and beside a copy_ of the same bytes;
+5b. threefry: the threefry-normal kernel (the JAX package's
+   jax.random.normal, drawn on the card) against its plain version
+   (ops.prng) on the card: the random bits bit-equal and the normals
+   within THREEFRY_BAR in f32 and bf16, on seeds at the int32 edges, an
+   odd shape, upsampling by 1, 2 and 4, both memory formats, an offset
+   whose counters cross 2^32, a key split on the card and read where it
+   lies, a data-parallel row slice drawn by offset against those rows
+   of the whole draw, and the paths' own draws whole at their shapes
+   (THREEFRY_PATH_CASES: b128 bf16 channels_last, the train step's NCHW
+   f32, the server's 16 rows); then its time at vg128 b128 (67.1 M
+   values, f32 and bf16) beside the plain version and torch.randn of the
+   same shape (a reference only: another generator), its bound from the
+   integer operations the function needs (utils/roofline's
+   THREEFRY_INT_OPS) at the card's max SM clock, with its SASS's mix
+   (cuobjdump) printed beside it; and the split kernel
+   (jax.random.split, the train step's key) bit-equal to the plain split
+   and timed beside it;
 6. the learned checkpoint artifacts/trained_coco64.pt through the
    run_model CLI on the card, in float32 and on the int8 turbo tier with a
    calibration file made on the card, each held against the CPU engine by
@@ -39,6 +57,11 @@ with a non-zero exit code:
    'split', the turbo tier, bf16 / 'packed', 'phase' and 'split_noise'
    and float32 / 'packed', agrees with the CPU engines on a small input,
    and its batch-128 forward is timed in each mode;
+7b. seeded: the JAX package's seed contract across devices: the seeded
+   vg128 b128 generate on the card in f32 (one threefry launch, one K1
+   launch) against the CPU engine's seeded generate of its first two
+   graphs at u8 PSNR >= PSNR_BAR, and the card's noise rows against the
+   CPU's draw of the same rows by offset within THREEFRY_BAR;
 8. serving over HTTP: the port's server (sg2im_tpu_torch.cli.serve) with
    the same vg128 weights, written as a checkpoint, in bf16 / 'split', on
    the turbo tier at a calibration file made on the card and in bf16 /
@@ -76,7 +99,9 @@ with a non-zero exit code:
    --restore_from_checkpoint true` equal at steps 30 and 40; the snapshot
    through run_model on the card; K1's launches exactly the steps, the
    check_model batches, three per triptych and step_breakdown's G calls,
-   and no other kernel; median ms per step, img/s, the loader's wait, the
+   the threefry draw exactly once per step, check_model batch, triptych
+   and step_breakdown, and no other kernel; median
+   ms per step, img/s, the loader's wait, the
    idle share under torch.profiler and peak memory beside phase_train's
    in-memory step, the same steps with the decoded-sample cache, and
    in-memory steps on the loader's first batch with cuDNN's default
@@ -100,8 +125,11 @@ with a non-zero exit code:
    checkpoint, written again as state.msgpack, reads back bit-equal to its
    state.pt with its histories (MB and seconds to write and read both
    files printed), `cli.train --restore_from_checkpoint 1` resumes it to
-   CLI_STEPS twice with finite, bit-identical loss traces, K1 launched
-   and no other kernel, and its later checkpoint still state.msgpack;
+   CLI_STEPS twice with finite, bit-identical loss traces, K1 and the
+   threefry draw launched (the draw exactly once per step, check_model
+   batch, triptych and step_breakdown) and no other kernel, and its later
+   checkpoint
+   still state.msgpack;
    sample_images and checkpoint_tools export open that directory, the
    export's run_model images bit-equal to the snapshot of the same step;
 13. parallel: parallel.dryrun's two ranks with Gloo on CUDA tensors, both
@@ -135,8 +163,10 @@ with a non-zero exit code:
    export through verify_pretrained --device cuda against the CPU engine's
    goldens at >= 40 dB, and its box-head probe refusing seed 0 on the
    card; loader_bench at the f32 proof's steady rate.  K1 launched exactly
-   once per step and per final check_model, probe and gate forward, and
-   no other kernel.  Their output goes to build/chip_smoke/proof_*.log;
+   once per step and per final check_model, probe and gate forward, the
+   threefry draw exactly once per step and per final check_model batch and
+   triptych, and no other kernel.  Their
+   output goes to build/chip_smoke/proof_*.log;
 16. measure: every measurement tool of sg2im_tpu_torch.tools once at
    reduced counts (MEASURE_RUNS): bw_probe's stream rates; roofline's
    per-section rows of the vg128 b128 forward in bf16 / 'split' and bf16 /
@@ -803,10 +833,263 @@ def phase_relayout(torch, card):
     return errs, times
 
 
+# name: (seed, (N, C, H, W), f, offset, channels_last).  Seeds at the int32
+# edges, an odd shape, every upsample factor, both memory formats and an
+# offset whose counters cross 2^32 (hi word nonzero).
+THREEFRY_CASES = {
+    **{f"seed {s} N3 C5 37x29": (s, (3, 5, 37, 29), 1, 0, False)
+       for s in (0, 7, 2 ** 31 - 1, -1, -2 ** 31)},
+    "seed 7 N3 C5 37x29 channels_last": (7, (3, 5, 37, 29), 1, 0, True),
+    "f2 N2 C6 24x40": (11, (2, 6, 24, 40), 2, 0, False),
+    "f2 N2 C6 24x40 channels_last": (11, (2, 6, 24, 40), 2, 0, True),
+    "f4 N2 C32 32x16 channels_last": (12, (2, 32, 32, 16), 4, 0, True),
+    "offset 2^32-700 N2 C5 16x16": (1, (2, 5, 16, 16), 1, 2 ** 32 - 700,
+                                    False),
+}
+# name: (seed, (N, C, H, W), dtype, channels_last): the draws the paths
+# make at their own shapes, each held whole against the plain version.
+THREEFRY_PATH_CASES = {
+    "b128 bf16 channels_last (tools.bench's turbo_img_s)":
+        (2, (128, 32, 128, 128), "bfloat16", True),
+    "COCO-64 b32 NCHW f32 (the train step)":
+        (9, (32, 32, 64, 64), "float32", False),
+    "16 rows channels_last f32 (the server's per-request rows)":
+        (4, (16, 32, 128, 128), "float32", True),
+}
+THREEFRY_TIMED = (128, 32, 128, 128)  # vg128 b128: 67.1 M values
+THREEFRY_BAR = 1e-6  # normals, kernel against the plain version
+THREEFRY_SOURCE = "sg2im_tpu_torch/csrc/threefry.cu"
+
+
+def threefry_sass_mix(mode: int) -> dict:
+    """{opcode: count} of the threefry kernel's instance for ``mode`` (1
+    f32, 2 bf16) in the built library, by cuobjdump -sass."""
+    from sg2im_tpu_torch.ops import _build
+    from sg2im_tpu_torch.utils.roofline import sass_mix
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(_build.library_path(
+        "threefry.cu"))], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed: {out.stderr[-2000:]}")
+    mix = sass_mix(out.stdout, f"threefry_normal_kernelILi{mode}ELi1E")
+    if not mix:
+        fail(f"no SASS found for the threefry kernel's mode {mode}")
+    return mix
+
+
+def check_threefry_case(torch, name, seed, shape, f, offset, cl):
+    """Bits bit-equal and normals within THREEFRY_BAR of the plain version
+    on the card, f32 and bf16 -> {"f32": err, "bf16": err}."""
+    from sg2im_tpu_torch.ops import prng
+    from sg2im_tpu_torch.ops import prng_kernel as pk
+
+    fmt = torch.channels_last if cl else torch.contiguous_format
+    key = prng.prng_key(seed)
+    kw = dict(f=f, offset=offset, device="cuda", memory_format=fmt)
+    bits = pk.threefry_bits(key, shape, **kw)
+    N, C, H, W = shape
+    want = prng.random_bits(key, (N, H // f, W // f, C), offset,
+                            "cuda").to(torch.int32).permute(0, 3, 1, 2)
+    want = want.repeat_interleave(f, 2).repeat_interleave(f, 3)
+    if not torch.equal(bits, want):
+        fail(f"threefry {name}: bits differ from the plain version at "
+             f"{int((bits != want).sum())} of {bits.numel()} elements")
+    if bits.is_contiguous(memory_format=fmt) is False:
+        fail(f"threefry {name}: output not in the asked memory format")
+    errs, eq = {}, {}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        got = pk.threefry_normal(key, shape, dtype=dtype, **kw)
+        plain = pk._plain(lambda k, s, d: prng.normal(k, s, dtype, offset,
+                                                      d),
+                          key, shape, f, fmt, torch.device("cuda"))
+        if got.dtype != dtype or got.shape != torch.Size(shape):
+            fail(f"threefry {name}: {tuple(got.shape)} {got.dtype}")
+        errs[tag] = (got.float() - plain.float()).abs().max().item()
+        eq[tag] = (got == plain).float().mean().item()
+        if not errs[tag] <= THREEFRY_BAR:
+            fail(f"threefry {name} {tag}: max_abs_err {errs[tag]:.3e} over "
+                 f"{THREEFRY_BAR}")
+    print(f"[threefry] {name}: bits equal; normals max_abs_err f32 "
+          f"{errs['f32']:.3e} ({100 * eq['f32']:.3f}% bit-equal), bf16 "
+          f"{errs['bf16']:.3e} ({100 * eq['bf16']:.3f}% bit-equal)")
+    return errs
+
+
+def check_threefry_path_case(torch, name, seed, shape, dtype, cl):
+    """A draw at a path's own shape against the plain version on the card,
+    within THREEFRY_BAR -> max abs err."""
+    from sg2im_tpu_torch.ops import prng
+    from sg2im_tpu_torch.ops import prng_kernel as pk
+
+    dtype = getattr(torch, dtype)
+    fmt = torch.channels_last if cl else torch.contiguous_format
+    key = prng.prng_key(seed)
+    got = pk.threefry_normal(key, shape, dtype=dtype, device="cuda",
+                             memory_format=fmt)
+    N, C, H, W = shape
+    want = prng.normal(key, (N, H, W, C), dtype, device="cuda")
+    if got.dtype != dtype or not got.is_contiguous(memory_format=fmt):
+        fail(f"threefry {name}: {got.dtype}, not {dtype} in its format")
+    d = (got.permute(0, 2, 3, 1).float() - want.float()).abs()
+    err = d.max().item()
+    print(f"[threefry] {name} {tuple(shape)}: max_abs_err {err:.3e}, "
+          f"{100 * (d == 0).float().mean().item():.4f}% bit-equal")
+    if not err <= THREEFRY_BAR:
+        fail(f"threefry {name}: max_abs_err {err:.3e} over {THREEFRY_BAR}")
+    del got, want, d
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_threefry(torch, card):
+    """The threefry kernel against its plain version (ops.prng) on the
+    card: every THREEFRY_CASES case, a key split on the card and read
+    where it lies, a data-parallel row slice drawn by offset, the paths'
+    own draws (THREEFRY_PATH_CASES); then its time at vg128 b128 in f32
+    and bf16 beside the plain version and torch.randn (a reference, not
+    the same function), its bound from the integer operations the
+    function needs (its SASS printed beside them); and the split kernel
+    against the plain split, bit for bit, and timed beside it at the train
+    step's split(key).  -> (errs, times)."""
+    from sg2im_tpu_torch.ops import prng
+    from sg2im_tpu_torch.ops import prng_kernel as pk
+    from sg2im_tpu_torch.utils.roofline import (
+        INT_OPCODES, THREEFRY_INT_OPS, threefry_bounds)
+
+    errs = {"f32": 0.0, "bf16": 0.0}
+    with torch.inference_mode():
+        for name, case in THREEFRY_CASES.items():
+            for k, v in check_threefry_case(torch, name, *case).items():
+                errs[k] = max(errs[k], v)
+        # A key split on the card, read by the kernel where it lies.
+        key = prng.split(prng.prng_key(5).cuda())[1]
+        shape = (2, 32, 16, 16)
+        got = pk.threefry_normal(key, shape, device="cuda")
+        want = pk.threefry_normal(prng.key_words(key), shape, device="cuda")
+        plain = prng.normal(key, (2, 16, 16, 32)).permute(0, 3, 1, 2)
+        err = (got - plain).abs().max().item()
+        if not torch.equal(got, want) or err > THREEFRY_BAR:
+            fail(f"threefry: a key on the card draws otherwise than its "
+                 f"words by value (err to plain {err:.3e})")
+        # Rows 1 and 2 of a batch of 4, drawn alone by offset (a
+        # data-parallel rank's rows) against those rows of the whole draw.
+        whole = pk.threefry_normal(prng.prng_key(3), (4, 32, 16, 16),
+                                   device="cuda")
+        rows = pk.threefry_normal(prng.prng_key(3), (2, 32, 16, 16),
+                                  offset=16 * 16 * 32, device="cuda")
+        if not torch.equal(rows, whole[1:3]):
+            fail("threefry: a row slice drawn by offset differs from the "
+                 "same rows of the whole draw")
+        print(f"[threefry] {len(THREEFRY_CASES)} cases, a key split on the "
+              f"card and a row slice by offset: bits equal, normals "
+              f"max_abs_err f32 {errs['f32']:.3e} bf16 {errs['bf16']:.3e}")
+        for name, case in THREEFRY_PATH_CASES.items():
+            tag = "bf16" if case[2] == "bfloat16" else "f32"
+            errs[tag] = max(errs[tag],
+                            check_threefry_path_case(torch, name, *case))
+
+        # Time at vg128 b128, channels_last as the engine draws it.
+        N, C, H, W = THREEFRY_TIMED
+        key = prng.prng_key(2)
+        cl = torch.channels_last
+        before = pk.threefry_normal.launches
+        times = {
+            "f32": time_ms(lambda: pk.threefry_normal(
+                key, THREEFRY_TIMED, device="cuda", memory_format=cl)),
+            "bf16": time_ms(lambda: pk.threefry_normal(
+                key, THREEFRY_TIMED, dtype=torch.bfloat16, device="cuda",
+                memory_format=cl)),
+            "randn": time_ms(lambda: torch.randn(
+                (N, H, W, C), device="cuda")),
+            "randn_bf16": time_ms(lambda: torch.randn(
+                (N, H, W, C), device="cuda", dtype=torch.bfloat16)),
+        }
+        if pk.threefry_normal.launches == before:
+            fail("the timed threefry kernel was not launched")
+        torch.cuda.empty_cache()
+        times["f32_plain"] = time_ms(lambda: prng.normal(
+            key, (N, H, W, C), device="cuda"), iters=3, warmup=1)
+        times["bf16_plain"] = time_ms(lambda: prng.normal(
+            key, (N, H, W, C), torch.bfloat16, device="cuda"), iters=3,
+            warmup=1)
+        big = pk.threefry_normal(key, THREEFRY_TIMED, device="cuda",
+                                 memory_format=cl)
+        ref = prng.normal(key, (N, H, W, C), device="cuda")
+        d = (big.permute(0, 2, 3, 1) - ref).abs()
+        errs["f32_timed"] = d.max().item()
+        print(f"[threefry] b128 draw against the plain version: max_abs_err "
+              f"{errs['f32_timed']:.3e}, "
+              f"{100 * (d == 0).float().mean().item():.4f}% bit-equal")
+        if errs["f32_timed"] > THREEFRY_BAR:
+            fail(f"threefry b128: max_abs_err {errs['f32_timed']:.3e}")
+        del big, ref, d
+        torch.cuda.empty_cache()
+        # The split kernel: bit-equal to the plain split for keys at the
+        # int32 edges, read on the card or by value; then the train step's
+        # split(key) timed, kernel against the plain version (tiny
+        # launches: the events measure the host's issue time as well).
+        for seed in (0, 7, 2 ** 31 - 1, -1, -2 ** 31):
+            for num in (1, 2, 5, 300):
+                key = prng.prng_key(seed)
+                want = prng.split(key, num)
+                for got in (pk.threefry_split(key.cuda(), num),
+                            pk.threefry_split(key, num, device="cuda")):
+                    if got.dtype != torch.uint32 or not torch.equal(
+                            got.cpu(), want):
+                        fail(f"threefry_split of seed {seed}, num {num} "
+                             f"differs from the plain split")
+        step_key = prng.prng_key(0).cuda()
+        times["split"] = time_ms(lambda: pk.threefry_split(step_key),
+                                 iters=50, warmup=5)
+        times["split_plain"] = time_ms(lambda: prng.split(step_key),
+                                       iters=50, warmup=5)
+        print(f"[threefry] split: bit-equal to the plain split (5 seeds, num "
+              f"1, 2, 5, 300, the key on the card and by value); the train "
+              f"step's split(key): kernel {times['split']:.4f} ms a call, "
+              f"plain torch {times['split_plain']:.4f} ms; on {card}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60)
+    clock_hz = float(smi.stdout.strip().splitlines()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    values = N * C * H * W
+    # split(key): two keys of two words written, each the hash without its
+    # final xor.
+    times["split_bound"] = threefry_bounds(2, 16, THREEFRY_INT_OPS["f32"] - 3,
+                                           sms, clock_hz)
+    for tag, mode, elem in (("f32", 1, 4), ("bf16", 2, 2)):
+        n_ops = THREEFRY_INT_OPS[tag]
+        times[f"{tag}_bound"] = threefry_bounds(values, values * elem, n_ops,
+                                                sms, clock_hz)
+        bound, by = times[f"{tag}_bound"]
+        # The kernel's own instructions, a diagnostic: not the bound.
+        mix = threefry_sass_mix(mode)
+        n_int = sum(v for k, v in mix.items() if k in INT_OPCODES)
+        ops = ", ".join(f"{k} {v}" for k, v in sorted(
+            mix.items(), key=lambda kv: -kv[1]))
+        print(f"[threefry] {tag} kernel SASS (static, the whole function): "
+              f"{sum(mix.values())} instructions, {n_int} on the integer "
+              f"opcodes ({ops})")
+        print(f"[threefry] b128 {tag} draw of {values} values at "
+              f"{values / times[tag] / 1e6:.1f} G values/s: "
+              f"{times[tag]:.4f} ms, {100 * bound / times[tag]:.1f}% of its "
+              f"{bound:.4f} ms {by} bound ({n_ops} integer operations a "
+              f"value, the function's own, on {sms} SMs x 64 lanes at "
+              f"{clock_hz / 1e6:.0f} MHz; "
+              f"{values * elem / 1e9:.3f} GB written), plain "
+              f"{times[tag + '_plain']:.3f} ms, torch.randn of the same "
+              f"shape {times['randn' if tag == 'f32' else 'randn_bf16']:.4f}"
+              f" ms (another generator: a reference); on {card}")
+    return errs, times
+
+
 def kernel_wrappers():
     """{kernels-line name: wrapper}; each wrapper counts its launches."""
     from sg2im_tpu_torch.ops import conv_kernel as ck
     from sg2im_tpu_torch.ops import layout_kernel as lk
+    from sg2im_tpu_torch.ops import prng_kernel as pk
     from sg2im_tpu_torch.ops import relayout as rl
 
     return {"layout_compose_boxes": lk.layout_compose,
@@ -814,12 +1097,27 @@ def kernel_wrappers():
             "conv3x3_bf16": ck.conv3x3,
             "conv3x3_s8": ck.conv3x3_int8,
             "relayout_s2d": rl.space_to_depth,
-            "relayout_d2s": rl.depth_to_space}
+            "relayout_d2s": rl.depth_to_space,
+            "threefry_normal": pk.threefry_normal,
+            "threefry_split": pk.threefry_split}
 
 
 # K1's counts in read_launches: all its launches, and those with a bf16
 # output among them.
 K1_COUNTS = ("layout_compose_boxes", "layout_compose_boxes_bf16")
+# A training run's kernels: K1, the threefry draw of its layout noise
+# (once per step, check_model batch, triptych and step_breakdown) and the
+# split of the state's key (once per step).
+TRAIN_COUNTS = K1_COUNTS + ("threefry_normal", "threefry_split")
+
+
+def cli_draws(steps, checkpoints, prints, sweeps):
+    """The threefry launches of a training CLI run with ``--timing true``:
+    one a step, one a check_model batch (``sweeps``: the batches of the
+    train and val sweeps at each checkpoint), one a triptych (after each
+    non-empty sweep) and one a step_breakdown (at each print)."""
+    return (steps + checkpoints * (sum(sweeps) + sum(n > 0 for n in sweeps))
+            + prints)
 
 
 def reset_launches():
@@ -1097,6 +1395,61 @@ def phase_vg128(torch, card, launches):
     return img_s
 
 
+SEEDED_SEED = 11        # phase_seeded's seed
+SEEDED_ROWS = (0, 124)  # the CPU draws 4 rows from each of these
+
+
+def phase_seeded(torch, card, launches):
+    """The JAX package's seed contract across devices: the seeded vg128
+    b128 generate on the card (f32, one threefry launch and one K1 launch)
+    against the CPU engine's seeded generate of its first two graphs (pad
+    bucket 2: the same noise rows), at u8 PSNR >= PSNR_BAR, and the card's
+    noise tensor against the CPU's on rows drawn there by offset, within
+    THREEFRY_BAR."""
+    from sg2im_tpu_torch.inference import InferenceEngine
+    from sg2im_tpu_torch.models import Sg2ImGenerator
+
+    vocab, kwargs = vg128_config()
+    model = Sg2ImGenerator(vocab, **kwargs)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    card_engine = InferenceEngine(vocab, kwargs, state, device="cuda")
+    cpu = InferenceEngine(vocab, kwargs, state, device="cpu")
+    graphs = random_graphs(vocab, 128, np.random.RandomState(SEEDED_SEED))
+    card_engine.generate(graphs, seed=SEEDED_SEED + 1)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    g_u8, g_out = card_engine.generate(graphs, seed=SEEDED_SEED)
+    ms = (time.perf_counter() - t0) * 1e3
+    path = read_launches()
+    add_launches(launches, path)
+    if path["threefry_normal"] != 1 or path["layout_compose_boxes"] != 1:
+        fail(f"the seeded b128 generate launched {path}: threefry and K1 "
+             f"once each expected")
+    c_u8, c_out = cpu.generate(graphs[:2], seed=SEEDED_SEED)
+    p = psnr_u8(g_u8[:2], c_u8)
+    err = (g_out["imgs"][:2].float().cpu() - c_out["imgs"]).abs().max()
+    noise = card_engine.draw_noise(128, SEEDED_SEED).cpu()
+    noise_err = max(
+        (noise[r:r + 4] - cpu.draw_noise(4, SEEDED_SEED, row=r)).abs().max()
+        .item() for r in SEEDED_ROWS)
+    print(f"[seeded] vg128 b128 f32 seeded generate on the card ({ms:.1f} "
+          f"ms, host included; launches "
+          f"{ {k: v for k, v in path.items() if v} }) against the CPU "
+          f"engine's seeded generate of its first 2 graphs: u8 PSNR "
+          f"{p:.2f} dB, max_abs_err {err.item():.3e}; the card's noise "
+          f"rows {SEEDED_ROWS[0]}-{SEEDED_ROWS[0] + 3} and "
+          f"{SEEDED_ROWS[1]}-{SEEDED_ROWS[1] + 3} against the CPU's draw "
+          f"by offset: max_abs_err {noise_err:.3e}; on {card}")
+    if p < PSNR_BAR:
+        fail(f"the card's seeded generate disagrees with the CPU's: "
+             f"{p:.2f} dB")
+    if not noise_err <= THREEFRY_BAR:
+        fail(f"the card's seeded noise differs from the CPU's by "
+             f"{noise_err:.3e}")
+
+
 SERVE_WINDOW_MS = 30.0   # the smoke servers' --batch_window_ms
 SERVE_CLIENTS = 8        # concurrent requests of SERVE_GRAPHS graphs each:
 SERVE_GRAPHS = 16        # one coalesced batch of 128
@@ -1259,6 +1612,11 @@ def drive_server(torch, name, server, vocab, rng, card, needs,
         if path[kernel] != per_call * engine_calls:
             fail(f"{name}: {kernel} launched {path[kernel]} times in "
                  f"{engine_calls} engine calls, not {per_call} per call")
+    # One seeded draw per 'random' request, alone or coalesced: the PNG
+    # and the npy of seed 17, and each concurrent request's own rows.
+    if path["threefry_normal"] != 2 + SERVE_CLIENTS:
+        fail(f"{name}: threefry launched {path['threefry_normal']} times "
+             f"for {2 + SERVE_CLIENTS} seeded requests")
     if (metrics["requests"], metrics["images"]) != tuple(sent) or (
             f"sg2im_requests_total {sent[0]}\n" not in text
             or f"sg2im_images_total {sent[1]}\n" not in text
@@ -1577,7 +1935,7 @@ def state_tensors(state):
     from sg2im_tpu_torch.train.state import tensors
 
     return {k: v.clone() for k, v in tensors(state).items()
-            if k not in ("step", "noise_rng")}
+            if k not in ("step", "rng")}
 
 
 def timed_steps(torch, trainer, state, batch, warmup, timed):
@@ -1720,6 +2078,7 @@ def phase_train(torch, card, launches):
     from sg2im_tpu_torch.inference import full_fp32
     from sg2im_tpu_torch.ops import layout_kernel as lk
     from sg2im_tpu_torch.ops import relayout as rl
+    from sg2im_tpu_torch.ops.prng import split
     from sg2im_tpu_torch.tools.profile_train import coco64
     from sg2im_tpu_torch.train.state import from_tensors, tensors
     from sg2im_tpu_torch.train.trainer import Trainer
@@ -1740,8 +2099,7 @@ def phase_train(torch, card, launches):
     noise = torch.randn((n, cfg.layout_noise_dim, 64, 64),
                         generator=torch.Generator().manual_seed(1))
     cpu_tr = Trainer(cfg, vocab, device="cpu")
-    cpu_state = from_tensors({k: v if k == "noise_rng" else v.cpu()
-                              for k, v in tensors(state).items()})
+    cpu_state = from_tensors({k: v.cpu() for k, v in tensors(state).items()})
     t0 = time.perf_counter()
     _, want = cpu_tr.step(cpu_state, small, noise=noise)
     cpu_s = time.perf_counter() - t0
@@ -1785,9 +2143,11 @@ def phase_train(torch, card, launches):
         add_launches(launches, path)
         check_steps_finite(name, metrics)
         steps = warmup + timed
-        if path["layout_compose_boxes"] != steps:
+        if (path["layout_compose_boxes"] != steps
+                or path["threefry_split"] != steps):
             fail(f"train {name}: K1 launched {path['layout_compose_boxes']} "
-                 f"times in {steps} steps")
+                 f"times, the key's split {path['threefry_split']} times in "
+                 f"{steps} steps")
         line = (f"[train] {name} b{N}: {steps} steps, K1 launches "
                 f"{path['layout_compose_boxes']} (one per G forward)")
         if packed:
@@ -1819,13 +2179,15 @@ def phase_train(torch, card, launches):
             state = mstate
         del mtr, mstate
 
-    # The NaN guard: one NaN image leaves the whole state bit-identical.
+    # The NaN guard: one NaN image leaves the whole state bit-identical
+    # but the key, which the skipped step splits as the JAX step does.
     before = state_tensors(state)
     bad = dict(batch, imgs=batch["imgs"].clone())
     bad["imgs"][0, 0, 0, 0] = float("nan")
     state2, m = tr.step(state, bad)
-    same = all(torch.equal(v, before[k])
-               for k, v in state_tensors(state2).items())
+    same = (all(torch.equal(v, before[k])
+                for k, v in state_tensors(state2).items())
+            and torch.equal(state2.rng, split(state.rng)[0]))
     state3, m3 = tr.step(state2, batch)
     print(f"[train] NaN guard: a batch with one NaN image skipped "
           f"({bool(m['skipped_nonfinite'])}), {len(before)} tensors of G, "
@@ -2107,8 +2469,7 @@ def repeatability(torch, trainer, batch, steps=5):
         state = trainer.init_state(seed=0)
         for _ in range(steps):
             state, _ = trainer.step(state, batch)
-        return {k: v.clone() for k, v in tensors(state).items()
-                if k != "noise_rng"}
+        return {k: v.clone() for k, v in tensors(state).items()}
 
     saved = torch.backends.cudnn.deterministic
     out = {}
@@ -2195,6 +2556,7 @@ def phase_train_cli(torch, card, launches, in_memory, work):
         k1_want = (CLI_STEPS + checkpoints * sum(sweeps)
                    + 3 * checkpoints * sum(s > 0 for s in sweeps)
                    + 4 * prints)
+        tf_want = cli_draws(CLI_STEPS, checkpoints, prints, sweeps)
         with open(os.path.join(tmp, "graphs.json"), "w") as f:
             json.dump([{"objects": ["thing1", "stuff92", "thing18"],
                         "relationships": [[0, "left of", 1],
@@ -2222,10 +2584,15 @@ def phase_train_cli(torch, card, launches, in_memory, work):
             add_launches(launches, path)
             k1 = path["layout_compose_boxes"]
             others = {k: v for k, v in path.items()
-                      if k not in K1_COUNTS and v}
-            if k1 != k1_want or others:
+                      if k not in TRAIN_COUNTS and v}
+            if (k1 != k1_want or others
+                    or path["threefry_normal"] != tf_want
+                    or path["threefry_split"] != CLI_STEPS):
                 fail(f"train CLI {mode}: K1 launched {k1} times, expected "
-                     f"{k1_want}; other kernels {others}")
+                     f"{k1_want}; threefry {path['threefry_normal']} times, "
+                     f"expected {tf_want}; the key's split "
+                     f"{path['threefry_split']} times for {CLI_STEPS} "
+                     f"steps; other kernels {others}")
             losses = _cli_log(full, "train")
             timing = _cli_log(full, "timing")
             bad = [t for t, r in losses.items()
@@ -2356,7 +2723,7 @@ def phase_train_cli(torch, card, launches, in_memory, work):
                   f"to the uninterrupted run's; snapshot_{CLI_STEPS:07d}.pt "
                   f"through run_model --device cuda: {imgs.shape}")
             torch.cuda.empty_cache()
-    return base, os.path.join(work, "f32_legacy_full")
+    return base, os.path.join(work, "f32_legacy_full"), sweeps
 
 
 # Data and tensor parallelism (sg2im_tpu_torch.parallel) on the one card:
@@ -2487,7 +2854,7 @@ def phase_parallel(torch, card, launches, coco_flags):
         if rel > DP_LOSS_BAR:
             fail(f"the world-1 NCCL step's losses differ by {rel:.3e}")
         ms = {"plain": [], "nccl": []}
-        calls = k1 = 0
+        calls = k1 = splits = 0
         for name in ("plain", "nccl", "nccl", "plain"):
             tr = plain if name == "plain" else dp
             c0 = collectives.all_reduce.calls
@@ -2500,10 +2867,12 @@ def phase_parallel(torch, card, launches, coco_flags):
                 add_launches(launches, path)
                 calls += collectives.all_reduce.calls - c0
                 k1 += path["layout_compose_boxes"]
+                splits += path["threefry_split"]
             ms[name].append(t)
         steps = 2 * (NCCL_WARMUP + NCCL_TIMED)
-        if k1 != steps:
-            fail(f"world-1 NCCL: K1 launched {k1} times in {steps} steps")
+        if k1 != steps or splits != steps:
+            fail(f"world-1 NCCL: K1 launched {k1} times, the key's split "
+                 f"{splits} times in {steps} steps")
         prof = {name: profile_steps(torch, tr, states[name], batch)
                 for name, tr in (("plain", plain), ("nccl", dp))}
         extra = np.mean(ms["nccl"]) - np.mean(ms["plain"])
@@ -2568,8 +2937,9 @@ def phase_mesh(torch, card, launches):
 
     # vg128 at b128 on a mesh of two data rows on cuda:0, per serving
     # mode, against the single engine on each row's 64 graphs with the
-    # same noise rows (the seeded draw of all 128, which the mesh makes on
-    # row 0): the same shapes, so the same kernels and algorithms.  The
+    # same noise rows (the seeded draw of all 128; each mesh row draws its
+    # own 64 by offset, one threefry launch a row, and those rows equal the
+    # whole draw's): the same shapes, so the same kernels and algorithms.  The
     # single engine's own b128 call is printed beside it: cuDNN picks its
     # algorithms by batch size.  Then two model columns (tensor parallel)
     # against the replicated mesh.
@@ -2623,6 +2993,13 @@ def phase_mesh(torch, card, launches):
                     f"{ {k: v for k, v in path.items() if v} }")
             if path["layout_compose_boxes"] != 2:
                 fail(f"{line}: K1 not launched once per row")
+            if path["threefry_normal"] != 2:
+                fail(f"{line}: the seeded noise not drawn once per row")
+            rows = torch.cat([mesh.draw_noise(half, 7, row=i)
+                              for i in (0, half)])
+            if not torch.equal(rows.permute(0, 2, 3, 1), noise):
+                fail(f"{line}: the rows' draws by offset differ from the "
+                     f"whole batch's draw")
             if name == "turbo" and (path["conv3x3_s8"] == 0
                                     or u8 > 2 or psnr_u8(a, b) < 55.0):
                 fail(line)
@@ -2779,7 +3156,7 @@ def _finite_trace(name, records):
         fail(f"{name}: non-finite or skipped at {bad}")
 
 
-def phase_jax_checkpoint(torch, card, launches, coco_flags, work):
+def phase_jax_checkpoint(torch, card, launches, coco_flags, work, sweeps):
     """A JAX-written checkpoint resumes on the card, and the training CLI's
     checkpoint goes to the JAX store's format and resumes from it; see the
     module docstring."""
@@ -2817,9 +3194,10 @@ def phase_jax_checkpoint(torch, card, launches, coco_flags, work):
                  f"{float(want)}")
         worst = max(worst, err / (JAX_LOSS_ATOL + TRAIN_LOSS_BAR
                                   * abs(float(want))))
-    if path["layout_compose_boxes"] != 1:
+    if path["layout_compose_boxes"] != 1 or path["threefry_split"] != 1:
         fail(f"the JAX fixture's step launched K1 "
-             f"{path['layout_compose_boxes']} times, not once")
+             f"{path['layout_compose_boxes']} times and the key's split "
+             f"{path['threefry_split']} times, not once each")
     n_losses = sum(k.startswith("loss/") for k in expected)
     print(f"[jax_ckpt] tests/fixtures/jax_ckpt_tiny (the JAX package's "
           f"state.msgpack of TINY at t={int(state.step)}) loaded on the "
@@ -2855,8 +3233,6 @@ def phase_jax_checkpoint(torch, card, launches, coco_flags, work):
                             os.path.getsize(os.path.join(
                                 where, store.STATE_FILES[backend])) / 1e6)
         a, b = tensors(back), tensors(state)
-        a.pop("noise_rng", None)
-        b.pop("noise_rng", None)
         diff = sorted(k for k in b if k not in a or a[k].dtype != b[k].dtype
                       or not torch.equal(a[k], b[k]))
         if set(a) != set(b) or diff:
@@ -2878,6 +3254,9 @@ def phase_jax_checkpoint(torch, card, launches, coco_flags, work):
         "true", "--num_iterations", str(CLI_STEPS),
         "--restore_from_checkpoint", "1"]
     traces, k1 = [], []
+    # From t=20 to CLI_STEPS: the steps, checkpoints and prints after 20.
+    tf_want = cli_draws(CLI_STEPS - 20, CLI_STEPS // 20 - 1,
+                        CLI_STEPS // 10 - 2, sweeps)
     for i, out in enumerate(runs):
         reset_launches()
         t0 = time.perf_counter()
@@ -2887,11 +3266,17 @@ def phase_jax_checkpoint(torch, card, launches, coco_flags, work):
         path = read_launches()
         check_no_padded_copies("the training CLI resuming state.msgpack")
         add_launches(launches, path)
-        others = {k: v for k, v in path.items() if k not in K1_COUNTS and v}
+        others = {k: v for k, v in path.items()
+                  if k not in TRAIN_COUNTS and v}
         k1.append(path["layout_compose_boxes"])
-        if k1[-1] < CLI_STEPS - 20 or others:
+        if (k1[-1] < CLI_STEPS - 20 or others
+                or path["threefry_normal"] != tf_want
+                or path["threefry_split"] != CLI_STEPS - 20):
             fail(f"the CLI resuming state.msgpack: K1 launched {k1[-1]} "
-                 f"times for {CLI_STEPS - 20} steps; other kernels {others}")
+                 f"times, threefry {path['threefry_normal']} times, "
+                 f"expected {tf_want}, the key's split "
+                 f"{path['threefry_split']} times for {CLI_STEPS - 20} "
+                 f"steps; other kernels {others}")
         losses = _cli_log(out, "train")
         _finite_trace("the CLI resuming state.msgpack", losses)
         if sorted(losses) != list(range(30, CLI_STEPS + 1, 10)):
@@ -2957,6 +3342,8 @@ FIDELITY_ITERS = 400       # trained_fidelity (the tool's default is 3000)
 # K1 launches of a run's final check_model: two b32 sweeps of 64 samples
 # (train and val) and a triptych of three G calls after each.
 PROOF_SWEEP_K1 = 2 + 2 + 3 * 2
+# Its threefry launches: one a sweep batch and one a triptych.
+PROOF_SWEEP_TF = 2 + 2 + 2
 
 
 def _tool(main, argv, log_path):
@@ -3025,7 +3412,8 @@ def phase_proofs(torch, card, launches, work):
             check_k1_function(torch, boxes, masks, obj_mask, D, "[proofs]")
 
     def others(path):
-        return {k: v for k, v in path.items() if k not in K1_COUNTS and v}
+        return {k: v for k, v in path.items()
+                if k not in TRAIN_COUNTS and v}
 
     runs = {}
     for name, extra in (
@@ -3051,10 +3439,15 @@ def phase_proofs(torch, card, launches, work):
         if rc != 0 or not s["decreased"] or not np.isfinite(l1).all():
             fail(f"train_proof {name} exited {rc}: L1 {s['l1_head']:.4f} -> "
                  f"{s['l1_tail']:.4f}, finite {np.isfinite(l1).all()}")
-        if k1 != s["iters"] + PROOF_SWEEP_K1 or others(path):
+        if (k1 != s["iters"] + PROOF_SWEEP_K1 or others(path)
+                or path["threefry_normal"] != s["iters"] + PROOF_SWEEP_TF
+                or path["threefry_split"] != s["iters"]):
             fail(f"train_proof {name}: K1 launched {k1} times, expected "
-                 f"{s['iters'] + PROOF_SWEEP_K1}; other kernels "
-                 f"{others(path)}")
+                 f"{s['iters'] + PROOF_SWEEP_K1}; threefry "
+                 f"{path['threefry_normal']} times, expected "
+                 f"{s['iters'] + PROOF_SWEEP_TF}; the key's split "
+                 f"{path['threefry_split']} times for {s['iters']} steps; "
+                 f"other kernels {others(path)}")
         if "compared_to" in s:
             c = s["compared_to"]
             print(f"[proofs] train_proof {name}: its L1 trace against the "
@@ -3104,8 +3497,14 @@ def phase_proofs(torch, card, launches, work):
     if min(shares[0]) != 0.0 or min(shares[trained_fidelity.SEED]) == 0.0:
         fail(f"the box-head probe did not refuse seed 0 and pass seed "
              f"{trained_fidelity.SEED}: {shares}")
-    if k1 != FIDELITY_ITERS + PROOF_SWEEP_K1 + 2 or others(path):
-        fail(f"trained_fidelity: K1 launched {k1} times; other kernels "
+    # Its probe and gate forwards take zero noise: no threefry launch.
+    tf = path["threefry_normal"]
+    if (k1 != FIDELITY_ITERS + PROOF_SWEEP_K1 + 2 or others(path)
+            or tf != FIDELITY_ITERS + PROOF_SWEEP_TF
+            or path["threefry_split"] != FIDELITY_ITERS):
+        fail(f"trained_fidelity: K1 launched {k1} times, threefry {tf} "
+             f"times (expected {FIDELITY_ITERS + PROOF_SWEEP_TF}), the "
+             f"key's split {path['threefry_split']} times; other kernels "
              f"{others(path)}")
 
     rc, wall, _, last = _tool(loader_bench.main, [
@@ -3233,12 +3632,16 @@ def phase_measure(torch, card, launches, work):
     sn = out["profile_seeded_noise"]
     if not sn["bit_identical"]:
         fail("profile_seeded_noise: eager and seeded images differ")
+    if sn["draw_threefry_launches"] != 1:
+        fail(f"profile_seeded_noise: a draw launched the threefry kernel "
+             f"{sn['draw_threefry_launches']} times, not once")
     print(f"[measure] profile_seeded_noise b128 bf16/split: eager "
           f"{sn['eager_img_s']:.1f} img/s, seeded {sn['seeded_img_s']:.1f},"
           f" zeros {sn['zeros_img_s']:.1f}; the draw "
           f"{sn['draw_device_ms']:.3f}"
-          f" device ms in {sn['draw_launches']:.0f} launches; eager and "
-          f"seeded bit-identical; on {card}")
+          f" device ms in {sn['draw_launches']:.0f} launches ("
+          f"{sn['draw_ms']:.3f} ms on events, {sn['draw_share_pct']:.1f}% "
+          f"of the seeded call); eager and seeded bit-identical; on {card}")
     print("[measure] profile_turbo_frontier b128: " + "; ".join(
         f"{r['config']} {r['psnr_u8_db']:.2f} dB u8, {r['img_s']:.1f} img/s "
         f"({r['vs_production_pct']:+.1f}%)"
@@ -3250,7 +3653,8 @@ def phase_measure(torch, card, launches, work):
 # int8 conv launches are its turbo parts' (the PSNR's and turbo_img_s).
 BENCH_RUNS = {
     "infer": ([], ("layout_compose_boxes", "conv3x3_s8")),
-    "train": (["--mode", "train"], ("layout_compose_boxes",)),
+    "train": (["--mode", "train"], ("layout_compose_boxes",
+                                    "threefry_normal", "threefry_split")),
 }
 TRAIN_LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "value_runs")
 
@@ -3333,21 +3737,26 @@ def main() -> int:
     done("conv")
     rl_errs, rl_times = phase_relayout(torch, card)
     done("relayout")
+    tf_errs, tf_times = phase_threefry(torch, card)
+    done("threefry")
     phase_checkpoint(torch, launches)
     done("checkpoint")
     vg128_img_s = phase_vg128(torch, card, launches)
     done("vg128")
+    phase_seeded(torch, card, launches)
+    done("seeded")
     phase_serve(torch, card, launches)
     done("serve")
     in_memory = phase_train(torch, card, launches)
     done("train")
     with tempfile.TemporaryDirectory() as work:
-        coco_flags, run_dir = phase_train_cli(torch, card, launches,
-                                              in_memory, work)
+        coco_flags, run_dir, sweeps = phase_train_cli(
+            torch, card, launches, in_memory, work)
         done("train_cli")
         phase_tools(torch, card, launches, coco_flags, run_dir, work)
         done("tools")
-        phase_jax_checkpoint(torch, card, launches, coco_flags, work)
+        phase_jax_checkpoint(torch, card, launches, coco_flags, work,
+                             sweeps)
         done("jax_checkpoint")
         phase_parallel(torch, card, launches, coco_flags)
         done("parallel")
@@ -3397,6 +3806,17 @@ def main() -> int:
         ("relayout_d2s", RELAYOUT_SOURCE, f"{relayout_src}:91",
          rl_errs["d2s"], rl_times["d2s"], rl_times["d2s_plain"],
          rl_bounds["d2s"], None),
+        # No TPU kernel: the JAX package's jax.random.normal, which XLA
+        # expands on the TPU.  torch.randn is another function (printed by
+        # phase_threefry as a reference), so no library call.
+        ("threefry_normal", THREEFRY_SOURCE, "sg2im_tpu/inference.py:301",
+         max(tf_errs.values()), tf_times["f32"], tf_times["f32_plain"],
+         tf_times["f32_bound"], None),
+        # jax.random.split of the train step's key (sg2im_tpu/train/
+        # step.py:274), which XLA expands on the TPU; checked bit for bit.
+        ("threefry_split", THREEFRY_SOURCE, "sg2im_tpu/train/step.py:274",
+         0.0, tf_times["split"], tf_times["split_plain"],
+         tf_times["split_bound"], None),
     ]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

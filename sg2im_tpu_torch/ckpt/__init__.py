@@ -117,34 +117,23 @@ def _adam_from_jax(opt_state, device):
         mu=moments(_field(adam, "mu")), nu=moments(_field(adam, "nu")))
 
 
-def noise_seed_from_key(key) -> int:
-    """A JAX PRNG key's two uint32 words as one 64-bit seed, ``(k0 << 32) |
-    k1``: ``jax.random.PRNGKey(s)`` gives ``s`` back."""
-    k = np.asarray(key).astype(np.uint64)
-    if k.shape != (2,):
-        raise ValueError(f"a JAX PRNG key has shape (2,), not {k.shape}")
-    return (int(k[0]) << 32) | int(k[1])
-
-
-def train_state_from_jax(state, device="cpu", noise_seed: int | None = None):
+def train_state_from_jax(state, device="cpu"):
     """A JAX ``TrainState`` -> the port's ``TrainState`` on ``device``: the
-    step, the three models' parameters and BatchNorm statistics and each
-    optimizer's count and moments.  ``state`` is the JAX package's object
-    (leaves numpy or JAX arrays) or the map the JAX store's
-    ``state.msgpack`` holds (``ckpt.msgpack.msgpack_restore``), nil for a
-    discriminator that is off.
+    step, the threefry key, the three models' parameters and BatchNorm
+    statistics and each optimizer's count and moments.  ``state`` is the
+    JAX package's object (leaves numpy or JAX arrays) or the map the JAX
+    store's ``state.msgpack`` holds (``ckpt.msgpack.msgpack_restore``), nil
+    for a discriminator that is off.
 
-    The seed contract: JAX's PRNG key has no counterpart in torch, so the
-    layout-noise generator starts from ``noise_seed``, by default the key's
-    two words as one seed (:func:`noise_seed_from_key`).  Two resumes of
-    one JAX checkpoint therefore draw the same noise; the noise of the JAX
-    run itself is not continued (a step fed its noise explicitly never
-    reads the generator)."""
+    The key crosses unchanged: the port splits and draws as the JAX
+    package does (``ops.prng``), so a run resumed here continues the JAX
+    run's noise stream."""
     from sg2im_tpu_torch.train.state import TrainState
 
     device = torch.device(device)
-    if noise_seed is None:
-        noise_seed = noise_seed_from_key(_field(state, "rng"))
+    key = np.asarray(_field(state, "rng"))
+    if key.shape != (2,):
+        raise ValueError(f"a JAX PRNG key has shape (2,), not {key.shape}")
 
     def sd(variables):
         return {k: v.to(device) for k, v in
@@ -152,8 +141,7 @@ def train_state_from_jax(state, device="cpu", noise_seed: int | None = None):
 
     fields = {"step": torch.tensor(int(np.asarray(_field(state, "step"))),
                                    dtype=torch.int32, device=device),
-              "noise_rng": torch.Generator(device=device).manual_seed(
-                  noise_seed).get_state(),
+              "rng": torch.from_numpy(key.astype(np.uint32)).to(device),
               "g": sd(_field(state, "g_vars")),
               "g_opt": _adam_from_jax(_field(state, "g_opt"), device)}
     for name in ("d_obj", "d_img"):
@@ -266,18 +254,16 @@ def variables_to_jax(state_dict, model: str, context=None) -> dict:
         else {"params": params}
 
 
-def jax_tree_from_train_state(state, seed: int = 0) -> dict:
+def jax_tree_from_train_state(state) -> dict:
     """The port's ``TrainState`` -> the JAX package's ``TrainState`` as the
     JAX store's ``state.msgpack`` holds it (:func:`train_state_from_jax`'s
     inverse), numpy arrays on the host: ``step``, ``rng``, each model's
     ``*_vars`` and its optax state ``{'0': {count, mu, nu}, '1': {}}``, nil
     for a discriminator that is off.  The keys are those of the JAX
     ``Trainer.init_state`` for the same config, as ``flax.serialization.
-    from_bytes`` wants.  ``rng`` is ``jax.random.PRNGKey(seed)``'s two
-    words: the generator's state has no JAX key."""
+    from_bytes`` wants.  ``rng`` is the state's threefry key as it is."""
     tree = {"step": np.asarray(int(state.step), np.int32),
-            "rng": np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
-                            np.uint32)}
+            "rng": state.rng.detach().cpu().numpy().astype(np.uint32)}
     for name in ("g", "d_obj", "d_img"):
         sd, opt = getattr(state, name), getattr(state, name + "_opt")
         vars_name = "g_vars" if name == "g" else name + "_vars"

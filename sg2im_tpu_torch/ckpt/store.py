@@ -6,16 +6,19 @@ One directory holds one checkpoint in one of two formats, the ``backend``:
 
 - ``'torch'``: ``state.pt`` holds every tensor of the
   :class:`~sg2im_tpu_torch.train.state.TrainState` (three models, three
-  optimizers, the step and the layout-noise generator's state) under flat
-  names; ``history.npz`` the caller's flat arrays.
+  optimizers, the step and the threefry key) under flat names;
+  ``history.npz`` the caller's flat arrays.  A ``state.pt`` written before
+  the port drew the JAX package's noise holds a ``torch.Generator`` state
+  (``noise_rng``) in place of the key, which cannot become one: it loads
+  with the key a fresh run of its config holds at step 0, and the load's
+  meta says so (``meta['rng_restarted']``).
 - ``'msgpack'``: the JAX store's default format, which the JAX package's
   ``load_checkpoint`` restores and its training CLI resumes.
   ``state.msgpack`` holds the JAX package's ``TrainState`` in flax's
   msgpack format (``ckpt.msgpack``; the tree of
   ``ckpt.jax_tree_from_train_state``); ``history.msgpack`` the arrays as
-  the JAX CLI nests them, ``{kind: [{key: array}]}``.  The generator's
-  state does not carry: a load seeds it from the JAX key
-  (``ckpt.train_state_from_jax``), a save writes ``PRNGKey(config.seed)``.
+  the JAX CLI nests them, ``{kind: [{key: array}]}``.  The key crosses
+  unchanged both ways, so either package continues the other's noise.
 
 Both put ``meta.json`` (the config, the vocab and the caller's ``extra``)
 beside.  :func:`load_checkpoint` reads either; :func:`save_checkpoint`
@@ -49,6 +52,7 @@ from sg2im_tpu_torch.ckpt import (
     train_state_from_jax,
 )
 from sg2im_tpu_torch.ckpt.msgpack import msgpack_restore, msgpack_serialize
+from sg2im_tpu_torch.ops.prng import prng_key, split
 from sg2im_tpu_torch.train.state import from_tensors, tensors
 
 STATE_FILES = {"torch": "state.pt", "msgpack": "state.msgpack"}
@@ -180,7 +184,7 @@ def _write(path, backend, host, config, vocab, extra, arrays):
         torch.save(host, tmp)
     else:
         data = msgpack_serialize(jax_tree_from_train_state(
-            from_tensors(host), getattr(config, "seed", 0)))
+            from_tensors(host)))
         with open(tmp, "wb") as f:
             f.write(data)
     os.replace(tmp, final)
@@ -235,23 +239,28 @@ def save_checkpoint(path: str, state, config=None, vocab=None, extra=None,
 def load_checkpoint(path: str, device="cpu"):
     """-> (state on ``device``, meta) from either format; meta holds
     ``config``, ``vocab``, ``extra`` and, when saved, ``arrays`` (flat
-    names in both formats).  The layout-noise generator state stays a CPU
-    tensor, as ``torch.Generator.get_state`` gives it."""
+    names in both formats).  A ``state.pt`` without a key (see the module
+    docstring) gets the key of a fresh run of its config,
+    ``split(PRNGKey(seed), 5)[0]``, and ``meta['rng_restarted'] = True``."""
     wait_pending()
     backend = _checkpoint_backend(path)
     state_path = os.path.join(path, STATE_FILES[backend])
-    if backend == "torch":
-        flat = torch.load(state_path, map_location="cpu", weights_only=True)
-        state = from_tensors({k: v if k == "noise_rng" else v.to(device)
-                              for k, v in flat.items()})
-    else:
-        with open(state_path, "rb") as f:
-            state = train_state_from_jax(msgpack_restore(f.read()), device)
     meta = {}
     meta_path = os.path.join(path, "meta.json")
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             meta = json.load(f)
+    if backend == "torch":
+        flat = torch.load(state_path, map_location="cpu", weights_only=True)
+        if "rng" not in flat:
+            flat.pop("noise_rng", None)
+            seed = int((meta.get("config") or {}).get("seed", 0))
+            flat["rng"] = split(prng_key(seed), 5)[0]
+            meta["rng_restarted"] = True
+        state = from_tensors({k: v.to(device) for k, v in flat.items()})
+    else:
+        with open(state_path, "rb") as f:
+            state = train_state_from_jax(msgpack_restore(f.read()), device)
     hist = os.path.join(path, HISTORY_FILES[backend])
     if os.path.exists(hist) and backend == "torch":
         with np.load(hist) as z:

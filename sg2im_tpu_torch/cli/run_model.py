@@ -66,8 +66,10 @@ def build_parser():
                              "and heads always run in true float32")
     parser.add_argument("--noise_impl", default=None,
                         choices=["threefry", "rbg"],
-                        help="the JAX CLI's PRNG choice; refused (the port "
-                             "draws from a torch.Generator)")
+                        help="PRNG for --noise random: 'threefry' (the "
+                             "default, the JAX package's draws); 'rbg' is "
+                             "refused (XLA's RngBitGenerator has no single "
+                             "reference to match)")
     parser.add_argument("--deprocess_device", type=int, default=0,
                         help="accepted so that the JAX CLI's command lines "
                              "stay valid: the port always deprocesses on "
@@ -89,10 +91,10 @@ def main(args=None):
               "the GCN and heads run in true float32 (TF32 off), which is "
               "'highest'")
         return 1
-    if args.noise_impl:
-        print(f"ERROR: --noise_impl {args.noise_impl} has no torch "
-              "counterpart: the port draws float32 noise from a "
-              "torch.Generator")
+    if args.noise_impl == "rbg":
+        from sg2im_tpu_torch.inference import RBG_REFUSED
+
+        print(f"ERROR: --noise_impl rbg is refused: {RBG_REFUSED}")
         return 1
     os.makedirs(args.output_dir, exist_ok=True)
 
@@ -105,7 +107,7 @@ def main(args=None):
         args.checkpoint, device=args.device,
         compute_dtype=torch.bfloat16 if args.bf16_compute else None,
         crn_mode=None if args.crn_mode == "legacy" else args.crn_mode,
-        quantize=args.quantize)
+        quantize=args.quantize, noise_impl=args.noise_impl)
     if args.calibration_file:
         engine.load_calibration(args.calibration_file)
     with open(args.scene_graphs_json) as f:

@@ -16,11 +16,11 @@ masks, row i for image i).  ``--checkpoint_list`` names checkpoints or
 snapshot directories (every ``snapshot_*`` file inside, in name order),
 one per line; each gets ``<output_dir>/result<i>[_<tag>]``.
 
-Every flag of the JAX CLI, plus ``--device``.  The layout noise of batch k
-is the (k + 1)-th draw of (batch, layout_noise_dim, H, W) from a
-``torch.Generator`` on the device seeded with ``--seed``, the port's seed
-contract (the values differ from the JAX package's threefry draws).  The
-last batch is padded to the full batch size and its padded rows dropped.
+Every flag of the JAX CLI, plus ``--device``.  The layout noise is the JAX
+CLI's: ``rng = PRNGKey(--seed)``, then for each batch ``rng, k =
+split(rng)`` and ``normal(k, (batch, H, W, layout_noise_dim))``, drawn on
+the device by the threefry kernel (``ops.prng``).  The last batch is
+padded to the full batch size and its padded rows dropped.
 ``--model_mode train`` normalises with each batch's statistics; the
 running statistics it would move are discarded.
 """
@@ -142,6 +142,8 @@ def run_checkpoint(args, checkpoint_path) -> int:
     )
     from sg2im_tpu_torch.inference import full_fp32
     from sg2im_tpu_torch.models.sg2im import Sg2ImGenerator
+    from sg2im_tpu_torch.ops.prng import prng_key, split
+    from sg2im_tpu_torch.ops.prng_kernel import threefry_normal
     from sg2im_tpu_torch.utils.vis import draw_scene_graph, have_graphviz
 
     device = torch.device(args.device)
@@ -179,7 +181,7 @@ def run_checkpoint(args, checkpoint_path) -> int:
 
     H, W = args.image_size
     noise_dim = model_kwargs.get("layout_noise_dim", 0) or 0
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    rng = prng_key(args.seed)
 
     def on_device(v, dtype):
         return torch.from_numpy(np.ascontiguousarray(v)).to(device, dtype)
@@ -209,8 +211,10 @@ def run_checkpoint(args, checkpoint_path) -> int:
                 [v, np.zeros((pad,) + v.shape[1:], v.dtype)])
                 if v is not None else None) for k, v in batch.items()}
         B = batch["imgs"].shape[0]
-        noise = (torch.randn((B, noise_dim, H, W), generator=gen,
-                             device=device) if noise_dim > 0 else None)
+        noise = None
+        if noise_dim > 0:
+            rng, k = split(rng)
+            noise = threefry_normal(k, (B, noise_dim, H, W), device=device)
         boxes_gt = (on_device(batch["boxes"], torch.float32)
                     if args.use_gt_boxes else None)
         masks_gt = (on_device(batch["masks"], torch.float32)

@@ -28,8 +28,10 @@ buckets.  ``--batch_window_ms W`` also coalesces CONCURRENT requests: the
 first waiting request leads, collects followers for W ms (up to
 --max_graphs in all) and runs ONE forward for all of them.  Each request's
 noise rows are drawn on the device from its own seed exactly as they would
-be unbatched (the engine's seeded-noise contract: row i of a seed is the
-(i + 1)-th draw), so pinned seeds stay reproducible; rows are independent
+be unbatched (the engine's seeded-noise contract, the JAX package's: at the
+default full resolution in float32 a request of n graphs gets
+``jax.random.normal(PRNGKey(seed), (n, H, W, D))``), so pinned seeds stay
+reproducible, and equal to the JAX server's; rows are independent
 through the generator (eval-mode norms), so batchmates don't change each
 other's images beyond the convolutions' sum order (within 1 u8 level).
 
@@ -111,8 +113,10 @@ def build_parser():
                         "auto-calibration)")
     p.add_argument("--noise_impl", default=None,
                    choices=[None, "threefry", "rbg"],
-                   help="the JAX server's PRNG choice; refused here (the "
-                        "port draws from a torch.Generator)")
+                   help="PRNG of the per-request noise: 'threefry' (the "
+                        "default, the JAX package's draws); 'rbg' is "
+                        "refused (XLA's RngBitGenerator has no single "
+                        "reference to match)")
     p.add_argument("--noise_downsample", default=1, type=int,
                    choices=[1, 2, 4],
                    help="draw per-request layout noise at (H/f, W/f) and "
@@ -152,18 +156,19 @@ def build_engines(args):
     import torch
 
     from sg2im_tpu_torch.ckpt import load_reference_checkpoint
-    from sg2im_tpu_torch.inference import InferenceEngine
+    from sg2im_tpu_torch.inference import RBG_REFUSED, InferenceEngine
 
-    # The JAX server's precision and RNG knobs have no torch counterpart.
+    # The JAX server's precision knob has no other torch counterpart, and
+    # its 'rbg' PRNG no reference.
     if args.dense_precision not in (None, "highest"):
         raise SystemExit(
             f"--dense_precision {args.dense_precision} is refused: the GCN "
             "and heads run in true float32 (TF32 off), which is 'highest'")
-    if args.noise_impl:
-        raise SystemExit(
-            f"--noise_impl {args.noise_impl} has no torch counterpart: the "
-            "port draws float32 noise from a torch.Generator")
+    if args.noise_impl == "rbg":
+        raise SystemExit(f"--noise_impl rbg is refused: {RBG_REFUSED}")
     kw = {}
+    if args.noise_impl:
+        kw["noise_impl"] = args.noise_impl
     if args.bf16:
         kw["compute_dtype"] = torch.bfloat16
     if args.crn_mode and args.crn_mode != "legacy":
@@ -375,8 +380,9 @@ class _Batcher:
     ``window_ms`` to collect followers, drains the queue (respecting the
     ``max_graphs`` bound), has ONE ``engine.generate`` run over the
     concatenated scene graphs, and distributes slices.  Each request's
-    noise rows are its own seed's draws (``engine.draw_noise``), exactly
-    what an unbatched call would have used.
+    noise rows are its own seed's draws (``engine.draw_noise``, one launch
+    of the threefry kernel each), exactly what an unbatched call would
+    have used.
 
     Every engine call (warmup included) runs on the batcher's one
     ``worker`` thread: cuDNN's execution plans are cached per thread, and

@@ -12,28 +12,35 @@ Precision: every forward runs with TF32 off for both cuBLAS and cuDNN
 (restored afterwards), so float32 layers are true float32.  With
 ``compute_dtype=torch.bfloat16`` only the CRN chain runs in bf16.
 
-Seeded noise contract: with ``noise=None`` the layout noise of padded row
-``i`` is the ``(i + 1)``-th draw of shape (layout_noise_dim, H / f, W / f)
-from ``torch.randn`` with a ``torch.Generator`` on the engine's device
-seeded with ``seed``, nearest-upsampled by f = ``noise_downsample`` (1 by
-default: full resolution).  A row's noise therefore does not depend on the
-padded batch size: the same graph at the same position with the same seed
-gives the same image in every pad bucket, and a server that coalesces
-requests draws each request's rows with :meth:`InferenceEngine.draw_noise`
-exactly as the request alone would.  The values differ between device
-types (CPU and CUDA generators differ) and from the JAX package's threefry
-draws.
+Seeded noise contract (the JAX package's, ``sg2im_tpu/inference.py``):
+with ``noise=None`` the layout noise of a padded batch of N rows is
+``jax.random.normal(jax.random.PRNGKey(seed), (N, H / f, W / f, D))`` with
+partitionable threefry, at ``noise_dtype`` (float32 by default),
+nearest-upsampled by f = ``noise_downsample`` (1 by default: full
+resolution).  The port draws exactly those values (``ops.prng``; on the
+card the threefry kernel of ``ops/prng_kernel.py`` draws them in one
+launch).  Counters run over the flat index of the draw, so row i's noise
+does not depend on N: the same graph at the same position with the same
+seed gives the same noise, and so the same image, in every pad bucket, in
+a server's coalesced batch (:meth:`InferenceEngine.draw_noise` draws a
+request's rows exactly as the request alone would), on every mesh
+sharding, on the CPU and on the card, and in the JAX package.  The noise
+bits are equal everywhere; the float32 normals agree with the JAX
+package's within 1e-6 (log1p rounds differently on each backend).
+``noise_impl='rbg'``, XLA's RngBitGenerator, has no single reference to
+match (its bits depend on the backend and the padded shape), so the port
+refuses it.  Seeds must fit int32, as in the JAX engine.
 
 Mesh (``InferenceEngine(mesh=make_mesh(...))``, the JAX engine's
 ``mesh=``): each data row of the mesh holds a replica of the generator on
 its first device and runs its share of the padded batch (rounded up to a
 multiple of the rows) on its own long-lived worker thread, since cuDNN
-keeps its plans per thread; the rows' outputs are gathered in order on row
-0's first device, which also draws the seeded noise, so a row's noise
-does not depend on the split.  ``tensor_parallel=True`` splits the GCN's
-hidden dimension over each row's model column
-(``parallel.mesh.tp_generator_sharding``).  On the int8 tier the
-activation scales are recorded once, on the whole batch, by row 0, and
+keeps its plans per thread; each row draws its own rows of the seeded
+noise by offset on its device (those rows of the whole batch's draw), and
+the rows' outputs are gathered in order on row 0's first device.
+``tensor_parallel=True`` splits the GCN's hidden dimension over each row's
+model column (``parallel.mesh.tp_generator_sharding``).  On the int8 tier
+the activation scales are recorded once, on the whole batch, by row 0, and
 every replica runs at the same scales.  Call :meth:`InferenceEngine.close`
 to end the workers.
 
@@ -65,6 +72,14 @@ from sg2im_tpu_torch.data import (
     imagenet_deprocess_batch_torch,
 )
 from sg2im_tpu_torch.models.sg2im import Sg2ImGenerator
+from sg2im_tpu_torch.ops.prng import prng_key
+from sg2im_tpu_torch.ops.prng_kernel import threefry_normal
+
+NOISE_DTYPES = (torch.float32, torch.bfloat16)
+RBG_REFUSED = (
+    "noise_impl 'rbg' (XLA's RngBitGenerator) is not supported: its bits "
+    "depend on the backend and on the padded batch shape, so it has no "
+    "single reference to match; use 'threefry' (the default)")
 
 
 class _Fp32Scope:
@@ -108,17 +123,18 @@ def pad_bucket(n: int) -> int:
     return max(1, 1 << (n - 1).bit_length()) if n else 1
 
 
-def seeded_noise(n: int, shape, seed: int, device) -> torch.Tensor:
-    """(n,) + shape standard normals, row i the (i + 1)-th draw of ``shape``
-    from a generator on ``device`` seeded with ``seed`` (see the module
-    docstring)."""
-    seed = int(seed)
-    if not -(1 << 63) <= seed < (1 << 64):
-        raise ValueError(f"seed must fit 64 bits, got {seed}")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return torch.stack([torch.randn(tuple(shape), generator=gen,
-                                    device=device) for _ in range(n)])
+def seeded_noise(n: int, shape, seed: int, device, f: int = 1,
+                 dtype=torch.float32, row: int = 0,
+                 memory_format=torch.contiguous_format) -> torch.Tensor:
+    """Rows ``row`` ... ``row + n - 1`` of the seeded layout noise of
+    ``seed`` (see the module docstring): (n, C, H, W) for ``shape`` = (C,
+    H, W), the rows of ``jax.random.normal(PRNGKey(seed), (., H / f, W /
+    f, C), dtype)`` nearest-upsampled by ``f``, on ``device`` (the threefry
+    kernel on the card)."""
+    C, H, W = (int(s) for s in shape)
+    return threefry_normal(prng_key(seed), (n, C, H, W), f=f, dtype=dtype,
+                           offset=row * C * (H // f) * (W // f),
+                           device=device, memory_format=memory_format)
 
 
 class InferenceEngine:
@@ -129,7 +145,8 @@ class InferenceEngine:
 
     def __init__(self, vocab, model_kwargs, state_dict, *, device=None,
                  pad_align: int = 8, compute_dtype=None, crn_mode=None,
-                 quantize=None, quant_opts=None, noise_downsample: int = 1,
+                 quantize=None, quant_opts=None, noise_impl=None,
+                 noise_dtype=None, noise_downsample: int = 1,
                  mesh=None, tensor_parallel: bool = False):
         """
         Args:
@@ -147,6 +164,11 @@ class InferenceEngine:
           quant_opts: the tier's band, merged key by key into the default
             {'max_res': 64}: 'head' (bool), 'min_res', 'max_res' (layout
             resolutions); a None value restores the model's default.
+          noise_impl: None or 'threefry' (the JAX default, the seed
+            contract of the module docstring); 'rbg' raises.
+          noise_dtype: None (float32) or torch.bfloat16: the type of the
+            seeded draw, as the JAX engine's (bfloat16 rounds the normals
+            themselves; 'zeros' and explicit noise are untouched).
           noise_downsample: f in {1, 2, 4}: seeded noise is drawn at
             (H / f, W / f) and nearest-upsampled on the device (the noise
             becomes constant over f x f tiles).  'zeros' and explicit
@@ -170,6 +192,15 @@ class InferenceEngine:
             # Never run elsewhere than asked.
             raise RuntimeError(f"device {self.device} requested but CUDA is "
                                "not available")
+        if noise_impl == "rbg":
+            raise ValueError(RBG_REFUSED)
+        if noise_impl not in (None, "threefry"):
+            raise ValueError(f"unknown noise_impl {noise_impl!r}")
+        self.noise_impl = "threefry"
+        if noise_dtype not in (None,) + NOISE_DTYPES:
+            raise ValueError(f"noise_dtype must be None, torch.float32 or "
+                             f"torch.bfloat16, got {noise_dtype!r}")
+        self.noise_dtype = noise_dtype
         if noise_downsample not in (1, 2, 4):
             raise ValueError(f"noise_downsample must be 1, 2 or 4, got "
                              f"{noise_downsample!r}")
@@ -245,27 +276,30 @@ class InferenceEngine:
         vocab, model_kwargs, state = bundle
         return cls(vocab, model_kwargs, state, **kw)
 
-    def draw_noise(self, n: int, seed: int) -> torch.Tensor | None:
-        """The seeded layout noise of ``n`` rows, (n, D, H, W) on the
-        engine's device (None for a noiseless model): the module
-        docstring's contract, which a request's rows keep in any batch."""
+    def draw_noise(self, n: int, seed: int, row: int = 0,
+                   device=None) -> torch.Tensor | None:
+        """Rows ``row`` ... ``row + n - 1`` of the seeded layout noise,
+        (n, D, H, W) channels_last on ``device`` (default the engine's;
+        None for a noiseless model): the module docstring's contract,
+        which a request's rows keep in any batch."""
         noise_dim = self.model.layout_noise_dim
         if noise_dim == 0:
             return None
         H, W = self.model.image_size
-        f = self.noise_downsample
-        out = seeded_noise(n, (noise_dim, H // f, W // f), seed, self.device)
-        if f > 1:
-            out = out.repeat_interleave(f, dim=2).repeat_interleave(f, dim=3)
-        return out
+        return seeded_noise(n, (noise_dim, H, W), seed,
+                            device or self.device, row=row,
+                            f=self.noise_downsample,
+                            dtype=self.noise_dtype or torch.float32,
+                            memory_format=torch.channels_last)
 
-    def _noise(self, noise, seed: int, N: int) -> torch.Tensor | None:
+    def _noise(self, noise, seed: int, N: int, row: int = 0,
+               device=None) -> torch.Tensor | None:
         noise_dim = self.model.layout_noise_dim
         if noise_dim == 0:
             return None
         H, W = self.model.image_size
         if noise is None:
-            out = self.draw_noise(N, seed)
+            out = self.draw_noise(N, seed, row, device)
         elif isinstance(noise, str):
             if noise != "zeros":
                 raise ValueError(f"noise must be None, 'zeros' or an array, "
@@ -433,9 +467,9 @@ class InferenceEngine:
           rel_scores (N, T, num_preds).
         """
         N = batch.objs.shape[0]
-        layout_noise = self._noise(noise, seed, N)
         calibrating = self._quantized and (_calibrate or not self.calibrated)
         if self.mesh is None or calibrating:
+            layout_noise = self._noise(noise, seed, N)
             # The int8 tier records its scales on the whole batch, on row
             # 0 of a mesh (whose replicas then take them).
             if self.mesh is None:
@@ -447,10 +481,20 @@ class InferenceEngine:
             return dict(zip(_OUTPUTS, out))
         self._share_scales()
         n = N // len(self.replicas)
-        futures = [w.submit(self._forward, rep, row[0], batch,
-                            slice(i * n, (i + 1) * n), layout_noise)
-                   for i, (w, rep, row) in enumerate(zip(
-                       self._workers, self.replicas, self.mesh.devices))]
+        given = None if noise is None else self._noise(noise, seed, N)
+        futures = []
+        for i, (w, rep, row) in enumerate(zip(
+                self._workers, self.replicas, self.mesh.devices)):
+            rows = slice(i * n, (i + 1) * n)
+            if noise is None:
+                # Each data row draws its own rows by offset on its
+                # device: the values of those rows of the whole draw.
+                rows_noise = self._noise(None, seed, n, row=i * n,
+                                         device=row[0])
+            else:
+                rows_noise = None if given is None else given[rows]
+            futures.append(w.submit(self._forward, rep, row[0], batch,
+                                    rows, rows_noise))
         parts = [f.result() for f in futures]
         out = [None if parts[0][k] is None else torch.cat(
             [p[k].to(self.device) for p in parts]) for k in range(4)]
@@ -464,13 +508,12 @@ class InferenceEngine:
 
     @staticmethod
     def _forward(model, device, batch, rows: slice, layout_noise):
-        """``model`` on ``device`` over ``rows`` of ``batch`` -> (imgs,
-        boxes, masks, rel_scores)."""
+        """``model`` on ``device`` over ``rows`` of ``batch`` with those
+        rows' ``layout_noise`` -> (imgs, boxes, masks, rel_scores)."""
         def dev(a, dtype):
             return torch.as_tensor(np.asarray(a)[rows]).to(device, dtype)
 
-        noise = (None if layout_noise is None
-                 else layout_noise[rows].to(device))
+        noise = None if layout_noise is None else layout_noise.to(device)
         with torch.inference_mode(), full_fp32():
             return model(
                 dev(batch.objs, torch.long), dev(batch.triples, torch.long),

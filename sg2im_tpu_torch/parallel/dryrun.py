@@ -87,6 +87,7 @@ def launch_counts() -> dict:
     chip_smoke.py's kernels line) and the collectives issued."""
     from sg2im_tpu_torch.ops import conv_kernel as ck
     from sg2im_tpu_torch.ops import layout_kernel as lk
+    from sg2im_tpu_torch.ops import prng_kernel as pk
     from sg2im_tpu_torch.ops import relayout as rl
     from sg2im_tpu_torch.parallel import collectives
 
@@ -97,6 +98,7 @@ def launch_counts() -> dict:
             "conv3x3_s8": ck.conv3x3_int8.launches,
             "relayout_s2d": rl.space_to_depth.launches,
             "relayout_d2s": rl.depth_to_space.launches,
+            "threefry_normal": pk.threefry_normal.launches,
             "collectives": collectives.all_reduce.calls}
 
 

@@ -228,13 +228,16 @@ def replicate_tensors(tensors: dict, pg=None, src: int = 0) -> dict:
     out = dict(tensors)
     for dtype in sorted({tensors[k].dtype for k in names}, key=str):
         group_names = [k for k in names if tensors[k].dtype == dtype]
-        flat = torch.cat([tensors[k].detach().reshape(-1).to(device)
-                          for k in group_names])
+        # uint32 (a threefry key) travels as int32: the backends have no
+        # unsigned 32-bit type.
+        wire = torch.int32 if dtype == torch.uint32 else dtype
+        flat = torch.cat([tensors[k].detach().reshape(-1).view(wire).to(
+            device) for k in group_names])
         collectives.broadcast(flat, pg, src)
         i = 0
         for k in group_names:
             t = tensors[k]
-            out[k] = flat[i:i + t.numel()].reshape(t.shape).to(
+            out[k] = flat[i:i + t.numel()].view(dtype).reshape(t.shape).to(
                 t.device).clone()
             i += t.numel()
     return out

@@ -14,7 +14,9 @@ standard output is one JSON object with ``bench.py``'s keys:
 * ``value``: the median img/s of ``--repeats`` windows of ``--iters``
   forwards of the generator at vg128 on ``bench.py:126-134``'s inputs
   (O 16 with 11 live objects, T 32, ``RandomState(0)``), random weights
-  from seed 0 and one pinned noise tensor, in the chosen mode (bf16 /
+  from seed 0 and bench.py:143's pinned noise, ``jax.random.normal(
+  PRNGKey(2), (N, 128, 128, 32))``, drawn on the card by the threefry
+  kernel, in the chosen mode (bf16 /
   'split', the production mode, by default); each window ends with one
   ``synchronize()`` on the host clock; ``value_runs`` the windows,
   ``vs_baseline`` against ``BASELINE_MEASURED.json``'s
@@ -44,8 +46,9 @@ Differences from ``bench.py``:
   the CPU (``psnr_reference`` says so), not the upstream model, which
   the repo does not hold; tier-1 holds that engine to the JAX package.
 * ``BENCH_DENSE_PRECISION`` has no counterpart: the GCN and the heads
-  always run in true float32, TF32 off.  The seeded noise is one draw
-  (``noise_impl='rbg'`` and ``noise_dtype`` have none either).
+  always run in true float32, TF32 off.  ``turbo_img_s`` draws its noise
+  in bfloat16 as bench.py's does, but by threefry: ``noise_impl='rbg'``
+  is refused by the port, its bits having no single reference.
 * Failures are not hidden: a failing part ends the run with exit code 1
   and its cause on standard error, where ``bench.py`` warns and leaves
   the field out.
@@ -149,20 +152,22 @@ def flagship_setup(batch: int = 32, device="cuda", engine=None):
 
     ``engine`` defaults to :func:`flagship_engine` on ``device``.  args are
     (objs, triples, obj_mask, triple_mask, noise): ``bench_inputs``
-    (bench.py:126-134) and one explicit (N, H, W, D) float32 draw from a
-    ``torch.Generator`` on the device seeded with 2, pinned as an input as
-    bench.py:143-144 pins ``PRNGKey(2)``'s, handed to the generator as its
-    (N, D, H, W) channels_last view.  ``fwd(*args)`` is the generator's
+    (bench.py:126-134) and bench.py:143-144's pinned noise,
+    ``jax.random.normal(PRNGKey(2), (N, H, W, D))`` (``ops.prng``, the
+    threefry kernel on the card), handed to the generator as its (N, D,
+    H, W) channels_last view.  ``fwd(*args)`` is the generator's
     forward under ``torch.inference_mode`` with TF32 off -> images (N, 3,
     H, W)."""
     from sg2im_tpu_torch.inference import full_fp32
+    from sg2im_tpu_torch.ops.prng import prng_key
+    from sg2im_tpu_torch.ops.prng_kernel import threefry_normal
 
     engine = engine or flagship_engine(device)
     model = engine.model
     H, W = model.image_size
-    gen = torch.Generator(device=device).manual_seed(2)
-    noise = torch.randn((batch, H, W, model.layout_noise_dim), generator=gen,
-                        device=device).permute(0, 3, 1, 2)
+    noise = threefry_normal(prng_key(2), (batch, model.layout_noise_dim, H,
+                                          W), device=device,
+                            memory_format=torch.channels_last)
     args = M.device_batch(M.bench_inputs(batch, engine.vocab), device) + (
         noise,)
 
@@ -422,7 +427,7 @@ def main_infer(args, device) -> dict:
     line["serve_img_s_random_runs"] = serve
     turbo = InferenceEngine(engine.vocab, engine.model_kwargs,
                             engine.model.state_dict(), device=str(device),
-                            quantize="int8")
+                            quantize="int8", noise_dtype=torch.bfloat16)
     del engine, fwd, fargs
     _free(device)
     runs = _serve_windows(turbo, gb, args.iters, args.repeats, device)

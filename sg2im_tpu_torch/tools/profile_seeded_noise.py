@@ -7,16 +7,18 @@ runs
 
 * (a) eager: ``InferenceEngine.draw_noise`` as its own call, then the
   batch on that tensor (passed NHWC, as a caller passes explicit noise);
-* (b) seeded: the engine's seeded path, whose ``seeded_noise`` draws one
-  ``torch.randn`` per row inside the call;
+* (b) seeded: the engine's seeded path, whose ``seeded_noise`` draws the
+  batch's noise (the JAX package's threefry normals) in one launch of the
+  threefry kernel inside the call;
 * (c) zeros: ``noise='zeros'``, the floor without a draw;
 
 each timed on the host clock as the median of ``--windows`` windows of
 ``--iters`` calls (a new seed per call) with the windows in ``*_runs``.
 Also: the draw's own device ms and kernel launches per call
-(``torch.profiler``), and whether (a) and (b) give bit-identical images at
-one seed, which the port's seed contract says they must.  The engine is
-not changed: whether to batch the draw is work for later.
+(``torch.profiler``), its ms on CUDA events beside the seeded forward
+(``draw_share_pct``), the threefry kernel's launches per draw, and whether
+(a) and (b) give bit-identical images at one seed, which the port's seed
+contract says they must.
 
     python -m sg2im_tpu_torch.tools.profile_seeded_noise [--iters 10]
         [--windows 3] [--out DIR]
@@ -51,6 +53,7 @@ def main(argv=None) -> int:
     device, card = opened
     print(card)
     from sg2im_tpu_torch.inference import InferenceEngine
+    from sg2im_tpu_torch.ops.prng_kernel import threefry_normal
 
     vocab, kwargs = (M.vg128_config() if args.config == "vg128"
                      else M.tiny_config())
@@ -89,6 +92,10 @@ def main(argv=None) -> int:
     res["draw_device_ms"] = table and table["device_ms"]
     res["draw_launches"] = table and table["kernels"]
     res["draw_ms"] = M.time_ms(draw, device, args.iters)
+    res["draw_share_pct"] = 100.0 * res["draw_ms"] / res[f"seeded_ms_b{N}"]
+    before = threefry_normal.launches
+    draw()
+    res["draw_threefry_launches"] = threefry_normal.launches - before
     noise = engine.draw_noise(N, 5).permute(0, 2, 3, 1)
     a = engine.generate_batch(gb, noise=noise)["imgs"]
     b = engine.generate_batch(gb, seed=5)["imgs"]

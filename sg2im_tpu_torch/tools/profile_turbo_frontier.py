@@ -8,7 +8,8 @@ head's 3x3, ``head_exempt``, ``s5_exempt`` the engine's default band,
 ``s3s4_only_head``) and its ``noise_downsample`` rows (``prod_nd2``,
 ``turbo_nd2``: the seeded draw at half resolution).  The JAX script's
 ``prod_dod`` row is gone: the port always deprocesses on the device; so
-is its ``noise_impl`` option: the port has one noise draw.
+is its ``noise_impl`` option: the port draws threefry alone ('rbg' has no
+single reference to match).
 
 Per row, on random vg128 weights from seed 0:
 
@@ -78,7 +79,9 @@ def gate_graphs(vocab) -> list[dict]:
 def rows():
     """[(name, engine kwargs beyond the serving mode, base row or None)]."""
     out = [("production", {}, None)]
-    out += [(name, {"quantize": "int8", "quant_opts": qo}, None)
+    # The int8 rows draw their noise in bfloat16, as the JAX script's do.
+    out += [(name, {"quantize": "int8", "quant_opts": qo,
+                    "noise_dtype": torch.bfloat16}, None)
             for name, qo, _ in CONFIGS]
     base = {name: kw for name, kw, _ in out}
     out += [(name, dict(base[b], **ov), b) for name, b, ov, _ in EXTRA_ROWS]
@@ -113,7 +116,8 @@ def main(argv=None) -> int:
     results, fidelity = [], {}
     for name, kw, base in rows():
         row = {"config": name, "engine_kwargs": {
-            k: v for k, v in kw.items() if k != "quantize"},
+            k: str(v) if isinstance(v, torch.dtype) else v
+            for k, v in kw.items() if k != "quantize"},
             "quantize": kw.get("quantize"), "card": card,
             "device": str(device)}
         if base is None:

@@ -36,9 +36,10 @@ and the other three stay 0); after the final check_model, a box IoU of 0
 on both splits is.  The report carries each output's share of non-zero
 objects at init and the final IoU.
 
-Seed contract: the port's seeds are torch's own (``Trainer.init_state``
-draws from a CPU ``torch.Generator``, so a seed gives the same weights on
-either device); the JAX package's threefry draws are not reproduced.  At
+Seed contract: the port's weight init is torch's own
+(``Trainer.init_state`` draws the weights from a CPU ``torch.Generator``,
+so a seed gives the same weights on either device); the JAX package's
+flax init streams are not reproduced, its layout noise is (threefry).  At
 these widths seed 0 of the port's init leaves the box outputs at 0 under
 the final ReLU, so the tool trains at ``SEED``, the smallest seed >= 0
 whose init the probe shows alive, and whose CPU tiny run (``--images 48

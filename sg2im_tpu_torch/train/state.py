@@ -27,13 +27,14 @@ class AdamState:
 @dataclasses.dataclass
 class TrainState:
     """``step`` (int32, 0-dim, on the device) counts iterations, skipped
-    ones included (upstream's ``t``); ``noise_rng`` is the state of the
-    layout-noise ``torch.Generator`` on the device (None when the
-    generator takes no noise); ``g``, ``d_obj``, ``d_img`` are the
-    modules' state dicts (parameters and BatchNorm buffers)."""
+    ones included (upstream's ``t``); ``rng`` is the JAX package's
+    threefry key (uint32 (2,), on the device), which every step splits
+    into its successor and the key of its layout noise (``ops.prng``);
+    ``g``, ``d_obj``, ``d_img`` are the modules' state dicts (parameters
+    and BatchNorm buffers)."""
 
     step: torch.Tensor
-    noise_rng: torch.Tensor | None
+    rng: torch.Tensor
     g: dict[str, torch.Tensor]
     g_opt: AdamState
     d_obj: dict[str, torch.Tensor] | None = None
@@ -48,9 +49,7 @@ class TrainState:
 def tensors(state: TrainState) -> dict[str, torch.Tensor]:
     """Every tensor of ``state`` under a flat dotted name (``g.<param>``,
     ``g_opt.mu.<param>``, ...), the layout a checkpoint stores."""
-    out = {"step": state.step}
-    if state.noise_rng is not None:
-        out["noise_rng"] = state.noise_rng
+    out = {"step": state.step, "rng": state.rng}
     for model in ("g", "d_obj", "d_img"):
         sd, opt = getattr(state, model), getattr(state, model + "_opt")
         if sd is None:
@@ -64,7 +63,7 @@ def tensors(state: TrainState) -> dict[str, torch.Tensor]:
 
 def from_tensors(flat: dict[str, torch.Tensor]) -> TrainState:
     """Inverse of :func:`tensors`."""
-    fields: dict = {"step": flat["step"], "noise_rng": flat.get("noise_rng")}
+    fields: dict = {"step": flat["step"], "rng": flat["rng"]}
     for model in ("g", "d_obj", "d_img"):
         pre = model + "."
         sd = {k[len(pre):]: v for k, v in flat.items() if k.startswith(pre)}

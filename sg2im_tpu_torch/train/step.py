@@ -4,6 +4,13 @@ updates (counterpart of ``sg2im_tpu/train/step.py``, upstream
 
 One step, in order:
 
+0. the state's threefry key splits into the next step's key and the key
+   of this step's layout noise (``jax.random.split``, on every step, as
+   the JAX step does; one launch of the split kernel on the card), and
+   the noise is ``jax.random.normal(noise_key,
+   (N_global, H, W, D))`` at the images' dtype, drawn on the device by the
+   threefry kernel (``ops/prng_kernel.py``); a data-parallel rank draws
+   only its own rows, by offset;
 1. G forward in train mode (eval mode after ``eval_mode_after``) from the
    ground-truth boxes and masks, so the layout compose runs on the
    ground truth (the Hopper kernel for CUDA tensors);
@@ -50,6 +57,7 @@ import torch.distributed as dist
 from torch.func import functional_call
 
 from sg2im_tpu_torch import losses as L
+from sg2im_tpu_torch.ops.prng_kernel import threefry_normal, threefry_split
 from sg2im_tpu_torch.parallel import collectives
 from sg2im_tpu_torch.train.state import AdamState, TrainState
 
@@ -229,9 +237,9 @@ def make_train_step(generator, d_obj, d_img, config, optimizers=None,
     computes what the one-process step computes on the global batch
     (``sg2im_tpu/parallel/mesh.py``'s GSPMD semantics): BatchNorm
     statistics and loss means over the global batch, the layout noise of
-    the global batch drawn from the replicated generator state (this rank
-    keeps its rows), each model's gradients and losses summed across the
-    ranks by one all-reduce before the NaN guard, so that every rank takes
+    the global batch drawn from the replicated key (this rank draws its
+    own rows by offset), each model's gradients and losses summed across
+    the ranks by one all-reduce before the NaN guard, so that every rank takes
     the same branch and applies the same update.
 
     Returns ``train_step(state, batch, eval_mode=False, noise=None) ->
@@ -239,8 +247,8 @@ def make_train_step(generator, d_obj, d_img, config, optimizers=None,
     device: imgs (N, 3, H, W), objs (N, O), boxes (N, O, 4), masks (N, O,
     M, M) or absent, triples (N, T, 3), obj_mask (N, O), triple_mask (N,
     T).  ``noise`` (N, layout_noise_dim, H, W) is the layout noise; when
-    None it is drawn from ``state.noise_rng``.  The metrics are 0-dim
-    device tensors.
+    None it is drawn from the step's noise key.  The key advances either
+    way.  The metrics are 0-dim device tensors.
     """
     opts = optimizers or make_optimizers(config)
     gan_g_loss, gan_d_loss = L.get_gan_losses(config.gan_loss_type)
@@ -249,19 +257,14 @@ def make_train_step(generator, d_obj, d_img, config, optimizers=None,
     DI = _Template(d_img) if d_img is not None else None
     d_clip = config.d_clip
 
-    def draw_noise(state, N, device):
-        """The global batch's noise from ``state.noise_rng``; this rank's
-        N rows of it."""
+    def draw_noise(key, N, dtype, device):
+        """This rank's N rows of the global batch's noise drawn from
+        ``key``."""
         H, W = config.image_size
-        gen = torch.Generator(device=device)
-        gen.set_state(state.noise_rng)
-        world = 1 if group is None else dist.get_world_size(group)
-        noise = torch.randn((N * world, config.layout_noise_dim, H, W),
-                            generator=gen, device=device)
-        if world > 1:
-            r = dist.get_rank(group)
-            noise = noise[r * N:(r + 1) * N]
-        return noise, gen.get_state()
+        D = config.layout_noise_dim
+        rank = 0 if group is None else dist.get_rank(group)
+        return threefry_normal(key, (N, D, H, W), dtype=dtype,
+                               offset=rank * N * H * W * D, device=device)
 
     def generator_losses(g_params, g_bufs, d_obj_sd, d_img_sd, batch, noise,
                          eval_mode):
@@ -360,10 +363,10 @@ def make_train_step(generator, d_obj, d_img, config, optimizers=None,
 
     def _train_step(state, batch, eval_mode, noise):
         N = batch["imgs"].shape[0]
-        device = batch["imgs"].device
-        noise_rng = state.noise_rng
+        rng, noise_key = threefry_split(state.rng)
         if config.layout_noise_dim > 0 and noise is None:
-            noise, noise_rng = draw_noise(state, N, device)
+            noise = draw_noise(noise_key, N, batch["imgs"].dtype,
+                               batch["imgs"].device)
 
         params, bufs = G.split(state.g)
         leaves = _leaves(params)
@@ -381,7 +384,7 @@ def make_train_step(generator, d_obj, d_img, config, optimizers=None,
 
         updates, g_opt = opts["g"].update(grads, state.g_opt, good)
         new = dict(
-            step=state.step + 1, noise_rng=noise_rng,
+            step=state.step + 1, rng=rng,
             g={**apply_updates(params, updates),
                **(bufs if eval_mode else _where(good, run_bufs, bufs))},
             g_opt=g_opt)

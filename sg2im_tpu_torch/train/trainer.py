@@ -20,6 +20,12 @@ global batch (``PaddedLoader(shard=(rank, world))`` with
 ``batch_size / world`` rows); the step computes the one-process step on
 the global batch (``train.step.make_train_step``) and the validation sweep
 the global figures.  Rank 0 alone writes checkpoints; every rank restores.
+
+Random numbers are the JAX Trainer's (``ops.prng``): the state's key is
+``split(PRNGKey(seed), 5)[0]``, each step splits it, ``check_model`` draws
+batch k's layout noise from the k-th split of ``PRNGKey(step)``, the
+triptych from ``PRNGKey(seed)`` and ``step_breakdown`` from
+``PRNGKey(0)``.  The weights keep the port's own torch init.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ from sg2im_tpu_torch.models import (
     Sg2ImGenerator,
 )
 from sg2im_tpu_torch.nn.layers import init_weights
+from sg2im_tpu_torch.ops.prng import prng_key, split
+from sg2im_tpu_torch.ops.prng_kernel import threefry_normal
 from sg2im_tpu_torch.parallel import collectives
 from sg2im_tpu_torch.parallel.mesh import replicate_state
 from sg2im_tpu_torch.train.config import TrainConfig
@@ -132,23 +140,18 @@ class Trainer:
                                       np.float32)
         return batch
 
-    def _noise_rng(self, seed: int):
-        if self.config.layout_noise_dim <= 0:
-            return None
-        return torch.Generator(device=self.device).manual_seed(
-            seed).get_state()
-
     def init_state(self, seed: int | None = None) -> TrainState:
         """Fresh weights from one CPU ``torch.Generator`` seeded with
         ``seed`` (default config.seed), G then D_obj then D_img, with
-        upstream's distributions; fresh Adams; the layout-noise generator
-        on the device seeded with ``seed``.  In a data-parallel run every
-        rank then holds rank 0's state (one broadcast per dtype)."""
+        upstream's distributions; fresh Adams; the key the JAX Trainer
+        starts from, ``split(PRNGKey(seed), 5)[0]``, on the device.  In a
+        data-parallel run every rank then holds rank 0's state (one
+        broadcast per dtype)."""
         seed = self.config.seed if seed is None else seed
         gen = torch.Generator().manual_seed(seed)
         fields = {"step": torch.zeros((), dtype=torch.int32,
                                       device=self.device),
-                  "noise_rng": self._noise_rng(seed)}
+                  "rng": self.initial_key(seed)}
         for name in ("g", "d_obj", "d_img"):
             module = self.modules()[name]
             if module is None:
@@ -164,6 +167,12 @@ class Trainer:
         if self.group is not None:
             state = replicate_state(state, self.group)
         return state
+
+    def initial_key(self, seed: int | None = None) -> torch.Tensor:
+        """The key of a fresh state of ``seed`` (default config.seed) on
+        the device, as the JAX Trainer's ``init_state`` leaves it."""
+        seed = self.config.seed if seed is None else seed
+        return split(prng_key(seed), 5)[0].to(self.device)
 
     def modules(self) -> dict:
         return {"g": self.generator, "d_obj": self.d_obj,
@@ -202,10 +211,10 @@ class Trainer:
         ``phase_fns`` on ``batch`` after one warm-up call each, timed on
         the host clock up to a read of the section's fence scalar (which
         waits for the card).  The state is not changed.  The layout noise
-        comes from a generator seeded with 0, the fakes of the D sections
-        from the G forward."""
+        is drawn from ``PRNGKey(0)``, the fakes of the D sections from the
+        G forward."""
         b = self.to_device(batch)
-        noise = self._layout_noise(0, b["imgs"].shape[0])
+        noise = self._layout_noise(prng_key(0), b["imgs"].shape[0])
         times: dict[str, float] = {}
         imgs_fake = None
         with full_fp32():
@@ -220,18 +229,17 @@ class Trainer:
                 times[name] = (time.perf_counter() - t0) * 1000.0
         return times
 
-    def _layout_noise(self, seed: int, N: int, gen=None):
-        """(N, layout_noise_dim, H, W) normal noise on the device from
-        ``gen``, or from a new generator seeded with ``seed``; None when
-        the generator takes no noise."""
+    def _layout_noise(self, key, N: int, row: int = 0):
+        """Rows ``row`` ... ``row + N - 1`` of ``jax.random.normal(key,
+        (., H, W, layout_noise_dim))`` as (N, layout_noise_dim, H, W) on
+        the device; None when the generator takes no noise."""
         c = self.config
         if c.layout_noise_dim <= 0:
             return None
-        if gen is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
         H, W = c.image_size
-        return torch.randn((N, c.layout_noise_dim, H, W), generator=gen,
-                           device=self.device)
+        D = c.layout_noise_dim
+        return threefry_normal(key, (N, D, H, W), offset=row * H * W * D,
+                               device=self.device)
 
     # -- validation (upstream check_model, train.py:309-384) ---------------
 
@@ -251,14 +259,14 @@ class Trainer:
     def check_model(self, state: TrainState, batches, num_samples=None,
                     return_samples: bool = False):
         """Validation sweep in eval mode: (mean losses, mean box IoU).  The
-        layout noise of each batch comes from a generator on the device
-        seeded with the state's step.  In a data-parallel run each rank
-        sweeps its own rows of every batch (as many batches on every
-        rank), and the figures are the global batches': the loss means
-        over the global batch, the sums of losses, IoU and objects summed
-        across the ranks; ``num_samples`` counts global rows, and the
-        samples are not gathered ({} and {}, as the JAX package's
-        multi-process sweep gives).
+        layout noise of batch k is drawn from the k-th split of
+        ``PRNGKey(step)``, as in the JAX Trainer.  In a data-parallel run
+        each rank sweeps its own rows of every batch (as many batches on
+        every rank; its rows of the noise by offset), and the figures are
+        the global batches': the loss means over the global batch, the sums
+        of losses, IoU and objects summed across the ranks; ``num_samples``
+        counts global rows, and the samples are not gathered ({} and {}, as
+        the JAX package's multi-process sweep gives).
 
         With ``return_samples=True``: (mean losses, samples, batch_data,
         mean IoU), the JAX package's tuple.  ``samples`` is the last
@@ -270,17 +278,16 @@ class Trainer:
         c = self.config
         tot_losses: dict[str, float] = {}
         tot_iou, tot_objs, seen = 0.0, 0.0, 0
-        gen = torch.Generator(device=self.device).manual_seed(int(state.step))
+        rng = prng_key(int(state.step))
         last = None
         for batch in batches:
             if num_samples is not None and seen >= num_samples:
                 break
             b = self.to_device(batch)
-            N = b["imgs"].shape[0] * self.world
-            noise = self._layout_noise(0, N, gen)
-            if noise is not None and self.world > 1:
-                n = N // self.world
-                noise = noise[self.rank * n:(self.rank + 1) * n]
+            n = b["imgs"].shape[0]
+            N = n * self.world
+            rng, k = split(rng)
+            noise = self._layout_noise(k, n, row=self.rank * n)
             with collectives.global_batch(self.group):
                 imgs, boxes, masks, rel_scores = self._generate(
                     state, b, noise, b["boxes"], b.get("masks"))
@@ -336,9 +343,9 @@ class Trainer:
         boxes with predicted masks, predicted boxes and masks; with the
         real images under ``gt_img``.  (N, 3, H, W) float tensors on the
         device, imagenet-normalised; the layout noise, the same for all
-        three, from a generator seeded with ``seed``."""
+        three, drawn from ``PRNGKey(seed)``."""
         b = self.to_device(batch)
-        noise = self._layout_noise(seed, b["imgs"].shape[0])
+        noise = self._layout_noise(prng_key(seed), b["imgs"].shape[0])
 
         def run(boxes_gt, masks_gt):
             return self._generate(state, b, noise, boxes_gt, masks_gt)[0]
@@ -371,9 +378,15 @@ class Trainer:
 
     def load_checkpoint(self, path: str):
         """-> (state, meta) from either format of ``ckpt.store``; tensors
-        land on the trainer's device."""
+        land on the trainer's device.  A checkpoint that holds no key
+        (``ckpt.store``'s module docstring) restarts the noise stream, and
+        this says so once."""
         from sg2im_tpu_torch.ckpt.store import load_checkpoint
 
         restored, meta = load_checkpoint(path, self.device)
+        if meta.get("rng_restarted"):
+            print(f"WARNING: {path} holds a torch.Generator state, not a "
+                  "threefry key: the layout-noise stream restarts from the "
+                  "key of a fresh run of its seed")
         self._host_step = None  # re-read from the restored counter
         return restored, meta

@@ -95,6 +95,60 @@ def conv_bounds(N, H, W, Cin, Co, elem_size):
     return nbytes, 2 * N * H * W * 9 * Cin * Co
 
 
+# Hopper's 32-bit integer lanes per SM (16 in each of its 4 sub-partitions).
+INT32_LANES_PER_SM = 64
+# SASS opcodes (before the first '.') that run on the integer pipes.
+INT_OPCODES = frozenset((
+    "IADD3", "IADD", "IMAD", "LEA", "LOP3", "LOP", "SHF", "SHL", "SHR",
+    "ISETP", "IMNMX", "IABS", "SEL", "PRMT", "POPC", "FLO", "BREV", "BMSK",
+    "SGXT", "IDP", "I2I", "I2IP", "VIADD", "VIMNMX"))
+
+
+def sass_mix(sass: str, function_part: str) -> dict:
+    """{opcode: count} of the SASS functions whose (mangled) name holds
+    ``function_part``, from ``cuobjdump -sass`` output; opcodes without
+    their modifiers (``IADD3.X`` counts as ``IADD3``), predicates
+    dropped.  Summed over every matching function."""
+    import re
+
+    mix: dict[str, int] = {}
+    inside = False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = function_part in line.split("Function :", 1)[1]
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if inside and m:
+            op = m.group(1).split(".")[0]
+            mix[op] = mix.get(op, 0) + 1
+    return mix
+
+
+# 32-bit integer operations that one threefry normal needs, whatever the
+# kernel: the threefry2x32-20 hash (20 rounds of add, rotate and xor: 60;
+# the key added at the start and at 5 injections, 2 adds each: 12; the two
+# output words XORed: 1) and the uniform's mantissa bits (float32: a shift
+# and an or; bfloat16: an and, a shift and an or).  Per-key work (the key
+# schedule, the injection constants), counters and addresses are not
+# counted, and neither is the float arithmetic of the uniform and of
+# erf_inv, which runs on the float pipes (twice the integer lanes).
+THREEFRY_INT_OPS = {"f32": 73 + 2, "bf16": 73 + 3}
+
+
+def threefry_bounds(values: int, out_bytes: int, int_per_value: float,
+                    sms: int, clock_hz: float):
+    """(bound ms, "bytes" or "operations") of one threefry draw of
+    ``values`` values: its output's ``out_bytes`` written once at the
+    card's memory rate, against ``int_per_value`` 32-bit integer
+    operations per value (:data:`THREEFRY_INT_OPS`, the function's own
+    count) issued on ``sms`` SMs' integer lanes at ``clock_hz``."""
+    t_bytes = out_bytes / HBM_BYTES
+    t_ops = values * int_per_value / (sms * INT32_LANES_PER_SM * clock_hz)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def _op_type(func_packet, args) -> str:
     """The peak an operation is held to, from its first tensor argument's
     type: 'bf16' (bf16 and f16), 'int8', or for float32 'tf32' where the

@@ -14,17 +14,19 @@ package on the CPU: a run crosses between the two systems both ways.
   absolute).
 - port -> JAX: ``save_checkpoint(..., backend='msgpack')`` writes what the
   JAX package's ``load_checkpoint`` restores against its own
-  ``init_state``, bit-equal, with ``rng`` = ``PRNGKey(config.seed)``.
+  ``init_state``, bit-equal, the threefry key included: the key crosses
+  both ways unchanged.
 - The CLIs both ways (``tests/test_cli.py``'s tiny flags on the synthetic
-  COCO, ``--layout_noise_dim 0``): the port's CLI resumes a JAX CLI run's
-  directory and gives the losses of a JAX run that was never stopped and
-  never checkpointed (the JAX CLI's own resume restarts its loader at the
-  first epoch, and its train-set check at a checkpoint moves its training
-  loader to the next epoch, so either JAX run trains on other batches
-  after step 4); the port keeps writing
-  ``state.msgpack``, which the JAX CLI resumes; the histories survive both
-  hops.  ``checkpoint_tools export`` of a JAX directory gives the JAX
-  package's own export; Orbax-only and empty directories are refused.
+  COCO, layout noise on at its ``--layout_noise_dim 4``): the port's CLI
+  resumes a JAX CLI run's directory, continues its noise stream from the
+  checkpoint's key, and gives the losses of a JAX run that was never
+  stopped and never checkpointed (the JAX CLI's own resume restarts its
+  loader at the first epoch, and its train-set check at a checkpoint moves
+  its training loader to the next epoch, so either JAX run trains on other
+  batches after step 4); the port keeps writing ``state.msgpack``, which
+  the JAX CLI resumes; the histories survive both hops.
+  ``checkpoint_tools export`` of a JAX directory gives the JAX package's
+  own export; Orbax-only and empty directories are refused.
 - ``tests/fixtures/jax_ckpt_tiny/``, the JAX-written checkpoint that
   ``chip_smoke.py`` resumes on the card: :func:`make_fixture` makes it
   again with the JAX package and it equals the committed files (arrays to
@@ -50,7 +52,6 @@ from sg2im_tpu.train.config import TrainConfig as JaxConfig
 from sg2im_tpu.train.trainer import Trainer as JaxTrainer
 from sg2im_tpu_torch.ckpt import (
     jax_tree_from_train_state,
-    noise_seed_from_key,
     state_dict_from_jax,
     train_state_from_jax,
 )
@@ -100,11 +101,8 @@ def _same_tree(got, want, path=""):
         assert type(got) is type(want) and got == want, (path, got, want)
 
 
-def _same_state(got, want, noise=True):
+def _same_state(got, want):
     a, b = tensors(got), tensors(want)
-    if not noise:
-        a.pop("noise_rng", None)
-        b.pop("noise_rng", None)
     assert set(a) == set(b)
     for k in b:
         assert a[k].dtype == b[k].dtype, k
@@ -273,15 +271,38 @@ def test_jax_checkpoint_loads_bit_equal(saved, name):
     assert samples["val_samples"] == []
 
 
-def test_noise_seed_is_the_keys_words(saved):
-    assert noise_seed_from_key(jax.random.PRNGKey(1234)) == 1234
+def test_noise_seed_is_the_keys_words(saved, tmp_path):
+    """The JAX key crosses both ways unchanged: a JAX checkpoint's key is
+    the loaded state's ``rng``, and the port's msgpack save writes it back
+    as it is.  A ``state.pt`` from before the key (a generator state under
+    ``noise_rng``) loads with the key of a fresh run of its seed and says
+    so."""
     j = saved("tiny")  # its key is a split's: both words in use
     k = np.asarray(j.state.rng)
-    state, _ = store.load_checkpoint(j.path)
-    want = torch.Generator().manual_seed((int(k[0]) << 32) | int(k[1]))
-    assert torch.equal(state.noise_rng, want.get_state())
+    assert k[0] != 0 and k[1] != 0
+    state, meta = store.load_checkpoint(j.path)
+    assert state.rng.dtype == torch.uint32
+    np.testing.assert_array_equal(state.rng.numpy(), k)
+    assert "rng_restarted" not in meta
+    np.testing.assert_array_equal(jax_tree_from_train_state(state)["rng"], k)
+    path = str(tmp_path / "again")
+    store.save_checkpoint(path, state, backend="msgpack")
+    again = msgpack_restore(_read(os.path.join(path, "state.msgpack")))
+    np.testing.assert_array_equal(again["rng"], k)
     with pytest.raises(ValueError, match="shape"):
-        noise_seed_from_key(np.zeros(4, np.uint32))
+        train_state_from_jax({**fser.to_state_dict(j.state),
+                              "rng": np.zeros(4, np.uint32)})
+    old = str(tmp_path / "old")
+    store.save_checkpoint(old, state, config=TrainConfig(**TINY, seed=5))
+    flat = torch.load(os.path.join(old, "state.pt"), weights_only=True)
+    flat["noise_rng"] = torch.Generator().manual_seed(5).get_state()
+    del flat["rng"]
+    torch.save(flat, os.path.join(old, "state.pt"))
+    restarted, meta = store.load_checkpoint(old)
+    assert meta["rng_restarted"] is True
+    np.testing.assert_array_equal(
+        restarted.rng.numpy(),
+        np.asarray(jax.random.split(jax.random.PRNGKey(5), 5)[0]))
 
 
 def _losses(metrics):
@@ -330,16 +351,15 @@ def test_port_checkpoint_restores_in_the_jax_package(saved, port_states,
     assert sorted(os.listdir(path)) == ["history.msgpack", "meta.json",
                                         "state.msgpack"]
     restored, meta = j.trainer.load_checkpoint(path, j.init)
-    _same_state(train_state_from_jax(jax.device_get(restored)), state,
-                noise=False)
+    _same_state(train_state_from_jax(jax.device_get(restored)), state)
     np.testing.assert_array_equal(np.asarray(restored.rng),
-                                  np.asarray(jax.random.PRNGKey(7)))
+                                  state.rng.numpy())
     assert meta["extra"] == {"checkpoint_ts": [1]}
     assert [r["img"].min() for r in meta["arrays"]["val_samples"]] == [1, 0]
     assert meta["config"]["seed"] == 7
     # The tree is that of the JAX Trainer's init_state, key for key.
     want = jax.tree_util.tree_structure(fser.to_state_dict(j.init))
-    got = jax_tree_from_train_state(state, seed=7)
+    got = jax_tree_from_train_state(state)
     assert jax.tree_util.tree_structure(got) == want
 
 
@@ -382,7 +402,7 @@ def test_backend_follows_the_directory(port_states, tmp_path, wait):
                                "state.msgpack"]
     assert save() == ["history.msgpack", "meta.json", "state.msgpack"]
     loaded, meta = store.load_checkpoint(path)
-    _same_state(loaded, state, noise=False)
+    _same_state(loaded, state)
     assert list(meta["arrays"]) == list(arrays)
     assert save("torch") == ["history.npz", "meta.json", "state.pt"]
     loaded, _ = store.load_checkpoint(path)
@@ -449,8 +469,7 @@ def cli_runs(tmp_path_factory):
     own); the port's CLI resuming a copy of the first directory to t=5
     (checkpoint at 5); the JAX CLI resuming the port's directory to t=6."""
     root = tmp_path_factory.mktemp("clis")
-    flags = _coco_flags(root) + ["--layout_noise_dim", "0", "--print_every",
-                                 "1"]
+    flags = _coco_flags(root) + ["--print_every", "1"]
     jax_dir, port_dir = str(root / "jax"), str(root / "port")
     ref_dir = str(root / "ref")
     assert jax_cli.main(flags + ["--num_iterations", "3", "--checkpoint_every",

@@ -1,5 +1,5 @@
-"""The Hopper kernels (layout compose, 3x3 conv, relayout) against their
-plain versions, on the card.
+"""The Hopper kernels (layout compose, 3x3 conv, relayout, threefry) against
+their plain versions, on the card.
 
 These tests need a CUDA card and nvcc; they carry the ``cuda`` marker and
 skip elsewhere.  On the card, where JAX (which tests/conftest.py imports)
@@ -7,9 +7,10 @@ need not be installed:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-The comparisons are those of ``chip_smoke.py`` phases 3 to 5 (layout
+The comparisons are those of ``chip_smoke.py`` phases 3 to 5b (layout
 compose: 1e-5 abs; conv: s8 within 1 ulp, bf16 within 1e-4 of max |out|;
-relayout: bit-equal), of its serving phase (the server's launches per
+relayout: bit-equal; threefry: bits bit-equal, normals within 1e-6), of
+its serving phase (the server's launches per
 engine call; the on-device deprocess bit-equal to the host's; noise on the
 card used where it lies), of its training phase (the kernels'
 gradients, a full-width step, the NaN guard) and of its training CLI
@@ -337,6 +338,85 @@ def test_device_noise_makes_no_host_copy(card):
     np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("name", sorted(chip_smoke.THREEFRY_CASES))
+def test_threefry_matches_plain_version(card, name):
+    """chip_smoke's threefry cases: bits bit-equal, normals (f32 and bf16)
+    within THREEFRY_BAR of the plain version on the card."""
+    errs = chip_smoke.check_threefry_case(
+        torch, name, *chip_smoke.THREEFRY_CASES[name])
+    assert max(errs.values()) <= chip_smoke.THREEFRY_BAR
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.THREEFRY_PATH_CASES))
+def test_threefry_path_draws_match_plain_version(card, name):
+    """The draws the paths make, whole at their own shapes, within
+    THREEFRY_BAR of the plain version on the card."""
+    err = chip_smoke.check_threefry_path_case(
+        torch, name, *chip_smoke.THREEFRY_PATH_CASES[name])
+    assert err <= chip_smoke.THREEFRY_BAR
+
+
+def test_threefry_key_on_the_card_and_refusals(card):
+    """A key split on the card is read where it lies and draws what its
+    words by value draw; f outside {1, 2, 4} and a key of another shape
+    are refused."""
+    from sg2im_tpu_torch.ops import prng
+    from sg2im_tpu_torch.ops import prng_kernel as pk
+
+    keys = prng.split(prng.prng_key(5).to(card), 3)
+    before = pk.threefry_normal.launches
+    got = pk.threefry_normal(keys[2], (2, 8, 16, 16))
+    assert got.is_cuda and pk.threefry_normal.launches == before + 1
+    want = pk.threefry_normal(prng.key_words(keys[2]), (2, 8, 16, 16),
+                              device=card)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="f = 3"):
+        pk.threefry_normal([0, 1], (1, 1, 6, 6), f=3, device=card)
+    with pytest.raises(ValueError, match="key on the card"):
+        pk.threefry_normal(keys, (1, 1, 4, 4))
+
+
+@pytest.mark.parametrize("num", [1, 2, 5, 300])
+def test_threefry_split_kernel_matches_plain_version(card, num):
+    """The split kernel bit-equal to the plain ``split`` for keys at the
+    int32 edges, read on the card or passed by value, one launch each."""
+    from sg2im_tpu_torch.ops import prng
+    from sg2im_tpu_torch.ops import prng_kernel as pk
+
+    for seed in (0, 7, 2 ** 31 - 1, -1, -2 ** 31):
+        key = prng.prng_key(seed)
+        want = prng.split(key, num)
+        before = pk.threefry_split.launches
+        on_card = pk.threefry_split(key.to(card), num)
+        by_value = pk.threefry_split(key, num, device=card)
+        assert pk.threefry_split.launches == before + 2
+        assert on_card.dtype == torch.uint32 and on_card.is_cuda
+        assert torch.equal(on_card.cpu(), want)
+        assert torch.equal(by_value.cpu(), want)
+
+
+def test_seeded_generate_launches_threefry_once(card):
+    """generate(noise=None) draws its noise with one threefry launch per
+    forward, on the card, equal to the same rows given explicitly."""
+    from sg2im_tpu_torch.inference import InferenceEngine
+    from sg2im_tpu_torch.models import Sg2ImGenerator
+    from sg2im_tpu_torch.ops import prng_kernel as pk
+
+    vocab, kwargs = chip_smoke.vg128_config()
+    kwargs = dict(kwargs, image_size=(64, 64), refinement_dims=(64, 32, 16, 8))
+    model = Sg2ImGenerator(vocab, **kwargs)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    engine = InferenceEngine(vocab, kwargs, model.state_dict(), device=card)
+    graphs = chip_smoke.random_graphs(vocab, 3, np.random.RandomState(2))
+    before = (pk.threefry_normal.launches, lk.layout_compose.launches)
+    a, _ = engine.generate(graphs, seed=6)
+    assert pk.threefry_normal.launches == before[0] + 1
+    assert lk.layout_compose.launches == before[1] + 1
+    noise = engine.draw_noise(3, seed=6).permute(0, 2, 3, 1)
+    b, _ = engine.generate(graphs, noise=noise)
+    np.testing.assert_array_equal(a, b)
+
+
 @pytest.fixture
 def train_card():
     """The card with autograd on (training), TF32 as the Trainer sets it."""
@@ -387,15 +467,22 @@ def test_k1_function_at_the_proofs_widths(train_card, tmp_path, D):
 
 def test_full_width_train_step_on_the_card(train_card):
     """One COCO-64 b32 step of the Trainer on the card: finite losses, not
-    skipped, K1 launched once, every state tensor finite."""
+    skipped, K1, the threefry draw and the key's split launched once,
+    every state tensor finite."""
     from sg2im_tpu_torch.train.state import tensors
     from sg2im_tpu_torch.train.trainer import Trainer
 
+    from sg2im_tpu_torch.ops import prng_kernel as pk
+
     vocab, cfg, batch = _coco64(train_card)
     tr = Trainer(cfg, vocab, device=train_card)
-    before = lk.layout_compose.launches
-    state, m = tr.step(tr.init_state(seed=0), batch)
-    assert lk.layout_compose.launches == before + 1
+    state = tr.init_state(seed=0)
+    before = (lk.layout_compose.launches, pk.threefry_normal.launches,
+              pk.threefry_split.launches)
+    state, m = tr.step(state, batch)
+    assert lk.layout_compose.launches == before[0] + 1
+    assert pk.threefry_normal.launches == before[1] + 1  # the step's noise
+    assert pk.threefry_split.launches == before[2] + 1  # the step's key
     assert not bool(m["skipped_nonfinite"])
     assert all(np.isfinite(float(v)) for v in m.values())
     assert all(torch.isfinite(v).all() for k, v in tensors(state).items()

@@ -89,6 +89,9 @@ def test_seeded_noise_is_pad_bucket_invariant(port_engine, scene_graphs):
     one = seeded_noise(1, (2, 3, 4), seed=7, device="cpu")
     four = seeded_noise(4, (2, 3, 4), seed=7, device="cpu")
     assert torch.equal(one[0], four[0])
+    # Rows drawn alone by their row index are those rows of the batch.
+    assert torch.equal(seeded_noise(2, (2, 3, 4), seed=7, device="cpu",
+                                    row=2), four[2:])
     # Bucket 1 vs bucket 4 (3 graphs padded to 4): the first image agrees.
     a, out_a = port_engine.generate(scene_graphs[:1], seed=7)
     b, out_b = port_engine.generate(scene_graphs[:3], seed=7)
@@ -277,11 +280,14 @@ def test_noise_downsample(scene_graphs):
     assert torch.equal(out_a["imgs"], out_b["imgs"])
     noise = two.draw_noise(3, seed=4)
     assert noise.shape == (3, 32, 64, 64)
+    # The (3, 32, 32, 32) draw: the JAX engine's normal(PRNGKey(4), (3,
+    # 32, 32, 32)), each value over a 2x2 tile.
     coarse = seeded_noise(3, (32, 32, 32), seed=4, device="cpu")
     for dy in (0, 1):
         for dx in (0, 1):
             assert torch.equal(noise[:, :, dy::2, dx::2], coarse)
     assert two.draw_noise(1, seed=4).equal(noise[:1])  # row-stable
+    assert two.draw_noise(2, seed=4, row=1).equal(noise[1:])
     c, _ = two.generate(scene_graphs[:2], seed=4)
     d, _ = one.generate(scene_graphs[:2], seed=4)
     assert not np.array_equal(c, d)

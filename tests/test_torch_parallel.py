@@ -271,10 +271,8 @@ def test_dp_ranks_hold_the_same_state(dp):
 
 def test_dp_step_state_matches_the_one_process_step(dp):
     _, states = dp
-    got = {k: v.double().numpy() for k, v in states["rank0"].items()
-           if k != "noise_rng"}
-    want = {k: v.double().numpy() for k, v in states["single"].items()
-            if k != "noise_rng"}
+    got = {k: v.double().numpy() for k, v in states["rank0"].items()}
+    want = {k: v.double().numpy() for k, v in states["single"].items()}
     assert set(got) == set(want)
     lr, held, total = TrainConfig(**DP).learning_rate, 0, 0
     for k, w in want.items():
@@ -285,7 +283,7 @@ def test_dp_step_state_matches_the_one_process_step(dp):
                              if n.startswith(group + "."))
         elif k.endswith(("running_mean", "running_var")):
             bar = 1e-5
-        elif k == "step" or k.endswith(".count"):
+        elif k in ("step", "rng") or k.endswith(".count"):
             bar = 0.0
         else:
             total += w.size

@@ -242,3 +242,39 @@ def test_tensor_bytes_counts_each_storage_once():
     lin = torch.nn.Linear(3, 2)
     assert R.tensor_bytes(a, [a, {"b": b}], (a,)) == 40 + 8
     assert R.tensor_bytes(lin, lin.weight) == 4 * (6 + 2)
+
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_122threefry_normal_kernelILi1ELi1EEEvPNS_3OutIXT_EE1TENS_6ParamsE
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;             /* 0x00000a00ff017b82 */
+        /*0010*/                   IADD3 R2, R3, R4, RZ ;             /* 0x0000000403027210 */
+        /*0020*/              @!P0 SHF.L.W.U32.HI R5, R5, 0xd, R5 ;  /* 0x0000000d05057819 */
+        /*0030*/                   IADD3.X R2, R3, R4, RZ, P0, !PT ; /* 0x0000000403027210 */
+        /*0040*/                   UIADD3 UR4, UR4, 0x1, URZ ;       /* 0x0000000104047890 */
+        /*0050*/                   FFMA R6, R7, R8, R9 ;             /* 0x0000000807067223 */
+\t\tFunction : _ZN12_GLOBAL__N_122threefry_normal_kernelILi1ELi2EEEvPNS_3OutIXT_EE1TENS_6ParamsE
+        /*0000*/                   IADD3 R2, R3, R4, RZ ;             /* 0x0000000403027210 */
+"""
+
+
+def test_sass_mix_and_threefry_bound():
+    """cuobjdump -sass text -> opcode counts of the named instance alone
+    (modifiers and predicates dropped), and the threefry bound: the
+    larger of the output's bytes at 3.35 TB/s and the integer
+    operations the function needs (the hash's 73 and the uniform's) on
+    SMs x 64 lanes at the clock."""
+    mix = R.sass_mix(SASS, "threefry_normal_kernelILi1ELi1E")
+    assert mix == {"LDC": 1, "IADD3": 2, "SHF": 1, "UIADD3": 1, "FFMA": 1}
+    assert sum(v for k, v in mix.items() if k in R.INT_OPCODES) == 3
+    assert R.sass_mix(SASS, "nothing") == {}
+    assert R.THREEFRY_INT_OPS == {"f32": 75, "bf16": 76}
+    values = 128 * 32 * 128 * 128
+    ms, by = R.threefry_bounds(values, 4 * values, R.THREEFRY_INT_OPS["f32"],
+                               132, 1.98e9)
+    assert by == "operations"
+    assert ms == pytest.approx(values * 75 / (132 * 64 * 1.98e9) * 1e3)
+    assert 0.30 < ms < 0.31
+    ms, by = R.threefry_bounds(values, 4 * values, 1, 132, 1.98e9)
+    assert by == "bytes" and ms == pytest.approx(4 * values / 3.35e12 * 1e3)

@@ -147,6 +147,19 @@ def test_generate_png_roundtrip(server):
     np.testing.assert_array_equal(img, _npy(npy))
 
 
+def test_build_engines_accepts_noise_impl_threefry():
+    """'threefry' is the engine's own draw (the JAX package's), so the JAX
+    server's flag builds the same engine as no flag."""
+    from sg2im_tpu_torch.cli.serve import build_engines, build_parser
+
+    argv = ["--checkpoint", CKPT, "--device", "cpu"]
+    (engine,) = build_engines(build_parser().parse_args(
+        argv + ["--noise_impl", "threefry"]))
+    assert engine.noise_impl == "threefry"
+    a = engine.draw_noise(2, seed=3)
+    assert np.array_equal(a.numpy(), engine.draw_noise(2, seed=3).numpy())
+
+
 def test_generate_zeros_deterministic_npy(server):
     a = _post(server, {"scene_graphs": [SG, SG], "noise": "zeros",
                        "return": "npy"})
@@ -468,9 +481,8 @@ REFUSED = {
                                         SystemExit,
                                         "require --quantize int8"),
     "--replicas 0": (["--replicas", "0"], SystemExit, ">= 1"),
-    "--noise_impl rbg": (["--noise_impl", "rbg"], SystemExit, "noise_impl"),
-    "--noise_impl threefry": (["--noise_impl", "threefry"], SystemExit,
-                              "no torch counterpart"),
+    "--noise_impl rbg": (["--noise_impl", "rbg"], SystemExit,
+                         "noise_impl rbg is refused.*no single reference"),
     "--dense_precision high": (["--dense_precision", "high"], SystemExit,
                                "dense_precision.*true float32"),
     "--replicas beyond the cards": (["--device", "cuda", "--replicas",

@@ -149,6 +149,30 @@ def test_sample_images_matches_jax(coco, tmp_path, mode):
     assert {"masks_pred", "masks_gt", "objs"} <= set(data)
 
 
+def test_sample_images_noise_matches_jax(coco, tmp_path):
+    """A generator that takes layout noise: both CLIs draw it as
+    ``split(PRNGKey(--seed))`` per batch, the port on its device through
+    the threefry kernel's wrapper, so the images agree as without noise
+    (the last batch padded, and a seed that is not 0)."""
+    config = TrainConfig(**dict(TINY, layout_noise_dim=4))
+    state = Trainer(config, coco["vocab"], device="cpu").init_state(seed=1)
+    pt = str(tmp_path / "noisy.pt")
+    export_reference_checkpoint(pt, state.g, config.generator_kwargs(),
+                                coco["vocab"], args=dataclasses.asdict(config))
+    flags = coco["flags"] + ["--checkpoint", pt, "--seed", "3"]
+    port, ref = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert _sample(sample_images, flags + ["--device", "cpu",
+                                           "--output_dir", port]) == 0
+    assert _sample(jax_sample, flags + ["--output_dir", ref]) == 0
+    _compare_dirs(port, ref)
+    other = str(tmp_path / "other")
+    assert _sample(sample_images, coco["flags"] + [
+        "--checkpoint", pt, "--seed", "4", "--device", "cpu",
+        "--output_dir", other]) == 0
+    assert not np.array_equal(_pngs(os.path.join(port, "img"))[1],
+                              _pngs(os.path.join(other, "img"))[1])
+
+
 def test_sample_images_checkpoint_list_and_native_store(coco, tmp_path):
     """A snapshot directory (two snapshots) and a .pt in one list, against
     the JAX CLI; the port's native checkpoint directory gives the bytes
@@ -333,4 +357,6 @@ def test_run_model_jax_flags(tmp_path, capsys):
     assert _run(tmp_path, "high", "--dense_precision", "high")[0] == 1
     assert "true float32" in capsys.readouterr().out
     assert _run(tmp_path, "rbg", "--noise_impl", "rbg")[0] == 1
-    assert "no torch counterpart" in capsys.readouterr().out
+    assert "no single reference" in capsys.readouterr().out
+    rc, tf = _run(tmp_path, "threefry", "--noise_impl", "threefry")
+    assert rc == 0 and np.array_equal(_pngs(tf)[1], a[1])

@@ -6,9 +6,11 @@ Each mode builds one JAX trainer per module (its step compiles once) and
 one port trainer on the CPU.  The port's seeded initial state goes into
 the JAX ``TrainState`` through the JAX package's own converter
 (``sg2im_tpu.ckpt.torch_convert``) and comes back through
-``train_state_from_jax``, bit for bit; then both take two steps on
-``tests/test_train.py``'s ``_rand_batch`` with the JAX layout-noise draw
-handed to the port.  Sizes: ``TINY`` for 'legacy', and a variant with
+``train_state_from_jax``, bit for bit, the threefry key included; then
+both take two steps on ``tests/test_train.py``'s ``_rand_batch``, each
+drawing its layout noise from its own copy of the key (the port's normals
+within 1e-6 of JAX's, ``tests/test_torch_prng.py``), and the keys after
+each step are equal.  Sizes: ``TINY`` for 'legacy', and a variant with
 layout noise, BatchNorm in the MLPs and in both discriminators at 32x32 for
 'split', 'packed' and 'phase' (whose last stage runs packed there).
 
@@ -59,6 +61,7 @@ from sg2im_tpu.train.config import TrainConfig as JaxConfig
 from sg2im_tpu.train.state import TrainState as JaxState
 from sg2im_tpu.train.trainer import Trainer as JaxTrainer
 from sg2im_tpu_torch.ckpt import store, train_state_from_jax
+from sg2im_tpu_torch.ops.prng import split
 from sg2im_tpu_torch.train.config import TrainConfig
 from sg2im_tpu_torch.train.state import tensors
 from sg2im_tpu_torch.train.step import (
@@ -81,9 +84,10 @@ ROUNDOFF_MU = 1e-8
 
 
 def _jax_state(jt, ts):
-    """The port's state as the JAX package's TrainState."""
-    fields = {"step": jnp.zeros((), jnp.int32),
-              "rng": jax.random.PRNGKey(0)}
+    """The port's state as the JAX package's TrainState, its step and key
+    too."""
+    fields = {"step": jnp.asarray(int(ts.step), jnp.int32),
+              "rng": jnp.asarray(ts.rng.numpy())}
     for name, convert in (("g", convert_generator_state),
                           ("d_obj", convert_ac_discriminator_state),
                           ("d_img", convert_patch_discriminator_state)):
@@ -94,9 +98,8 @@ def _jax_state(jt, ts):
 
 
 def _flat(state):
-    """{name: float64 numpy} of a port state, the noise generator aside."""
-    return {k: v.double().numpy() for k, v in tensors(state).items()
-            if k != "noise_rng"}
+    """{name: float64 numpy} of a port state (the key's words exact)."""
+    return {k: v.double().numpy() for k, v in tensors(state).items()}
 
 
 class _Run:
@@ -113,18 +116,10 @@ class _Run:
         js = _jax_state(jt, self.init)
         self.carried = train_state_from_jax(js)
         ts = self.carried
-        H, W = jc.image_size
-        self.port, self.jax, self.noise = [], [], []
+        self.port, self.jax = [], []
         for _ in range(2):
-            noise = None
-            if jc.layout_noise_dim > 0:
-                key = jax.random.split(js.rng)[1]  # the step's own draw
-                noise = np.asarray(jax.random.normal(
-                    key, (jc.batch_size, H, W, jc.layout_noise_dim)))
-                noise = torch.from_numpy(noise.transpose(0, 3, 1, 2).copy())
-            self.noise.append(noise)
             js, jm = jt.step(js, dict(self.batch))
-            ts, tm = self.trainer.step(ts, dict(self.batch), noise=noise)
+            ts, tm = self.trainer.step(ts, dict(self.batch))
             self.jax.append(({k: float(v) for k, v in jm.items()},
                              _flat(train_state_from_jax(js))))
             self.port.append(({k: float(v) for k, v in tm.items()},
@@ -222,7 +217,7 @@ def test_state_after_steps_matches_jax(runs, mode, step):
             bar = 1e-4 * peak
         elif k.endswith(("running_mean", "running_var")):
             bar = 1e-5 + lr * (step - 1)
-        elif k == "step" or k.endswith(".count"):
+        elif k in ("step", "rng") or k.endswith(".count"):
             bar = 0.0
         else:
             keep = _kept(r, k, step)
@@ -327,8 +322,15 @@ def test_skippable_adam_matches_optax():
 
 
 def _snapshot(state):
-    return {k: v.clone() for k, v in tensors(state).items()
-            if k not in ("step", "noise_rng")}
+    return {k: v.clone() for k, v in tensors(state).items() if k != "step"}
+
+
+def _skipped(before, after):
+    """``after`` is ``before`` bit for bit but for the key, which a skipped
+    step splits all the same (as the JAX step does)."""
+    before, after = dict(before), dict(after)
+    assert torch.equal(after.pop("rng"), split(before.pop("rng"))[0])
+    return _same(before, after)
 
 
 def _same(a, b):
@@ -350,7 +352,7 @@ def test_nan_batch_is_a_bitexact_noop_and_recovers(mode):
     state2, m = tr.step(state, bad)
     assert bool(m["skipped_nonfinite"])
     assert int(state2.step) == 2
-    assert _same(before, _snapshot(state2))
+    assert _skipped(before, _snapshot(state2))
     state3, m3 = tr.step(state2, dict(batch))
     assert not bool(m3["skipped_nonfinite"])
     assert np.isfinite(float(m3["total_loss"]))
@@ -384,7 +386,7 @@ def test_nonfinite_gradients_skip_the_step(monkeypatch):
                                            JaxConfig(**TINY)))
     assert np.isfinite(float(m["total_loss"]))
     assert bool(m["skipped_nonfinite"])
-    assert _same(before, _snapshot(state2))
+    assert _skipped(before, _snapshot(state2))
 
 
 def test_eval_mode_after_freezes_g_batchnorm_and_resets_optimizer():
@@ -479,7 +481,7 @@ def test_bf16_compute_keeps_batchnorm_statistics_f32():
 def test_save_and_resume_gives_the_same_next_step(tmp_path, wait):
     """A native save after a step, loaded into a fresh Trainer, takes the
     same next step as the uninterrupted run, the layout noise included
-    (drawn from the restored generator state)."""
+    (drawn from the restored key)."""
     kw = dict(VARIANT, crn_mode="packed")
     cfg = TrainConfig(**kw)
     batch = _rand_batch(np.random.RandomState(8), JaxConfig(**kw))
@@ -494,7 +496,7 @@ def test_save_and_resume_gives_the_same_next_step(tmp_path, wait):
     assert meta["extra"] == {"t": 1} and meta["config"]["crn_mode"] == "packed"
     np.testing.assert_array_equal(meta["arrays"]["losses"], np.arange(3.0))
     assert _same(_snapshot(state), _snapshot(restored))
-    assert torch.equal(restored.noise_rng, state.noise_rng)
+    assert torch.equal(restored.rng, state.rng)
     res, m_res = tr2.step(restored, dict(batch))
     for k in m_cont:
         assert float(m_cont[k]) == float(m_res[k]), k
@@ -504,8 +506,9 @@ def test_save_and_resume_gives_the_same_next_step(tmp_path, wait):
 
 def test_check_model_matches_jax():
     """check_model's mean losses and IoU against the JAX Trainer's on the
-    same carried weights and batches (TINY takes no layout noise)."""
-    kw = dict(TINY, predicate_pred_loss_weight=0.5)
+    same carried weights and batches, with the layout noise of each batch
+    drawn from the splits of PRNGKey(step) on both sides."""
+    kw = dict(TINY, predicate_pred_loss_weight=0.5, layout_noise_dim=4)
     tr = Trainer(TrainConfig(**kw), VOCAB, device="cpu")
     jt = JaxTrainer(JaxConfig(**kw), VOCAB)
     state, _ = tr.step(tr.init_state(seed=0),
