@@ -35,17 +35,21 @@ with a non-zero exit code:
    jax.random.normal, drawn on the card) against its plain version
    (ops.prng) on the card: the random bits bit-equal and the normals
    within THREEFRY_BAR in f32 and bf16, on seeds at the int32 edges, an
-   odd shape, upsampling by 1, 2 and 4, both memory formats, an offset
-   whose counters cross 2^32, a key split on the card and read where it
+   odd shape, upsampling by 1, 2 and 4, both memory formats, offsets
+   whose counters cross 2^32 (inside one thread's run of values too),
+   channel counts and widths that are no multiple of the values a thread
+   (the kernel's ragged edges), a key split on the card and read where it
    lies, a data-parallel row slice drawn by offset against those rows
    of the whole draw, and the paths' own draws whole at their shapes
    (THREEFRY_PATH_CASES: b128 bf16 channels_last, the train step's NCHW
    f32, the server's 16 rows); then its time at vg128 b128 (67.1 M
    values, f32 and bf16) beside the plain version and torch.randn of the
    same shape (a reference only: another generator), its bound from the
-   integer operations the function needs (utils/roofline's
-   THREEFRY_INT_OPS) at the card's max SM clock, with its SASS's mix
-   (cuobjdump) printed beside it; and the split kernel
+   least instructions this ISA needs a value (utils/roofline's
+   THREEFRY_OPS) at the card's max SM clock, with its SASS's mix
+   (cuobjdump, per value) printed beside it, and the train step's NCHW
+   draw and b128 at f 2 each timed beside its bound
+   (THREEFRY_TIMED_MORE); and the split kernel
    (jax.random.split, the train step's key) bit-equal to the plain split
    and timed beside it;
 6. the learned checkpoint artifacts/trained_coco64.pt through the
@@ -60,8 +64,10 @@ with a non-zero exit code:
 7b. seeded: the JAX package's seed contract across devices: the seeded
    vg128 b128 generate on the card in f32 (one threefry launch, one K1
    launch) against the CPU engine's seeded generate of its first two
-   graphs at u8 PSNR >= PSNR_BAR, and the card's noise rows against the
-   CPU's draw of the same rows by offset within THREEFRY_BAR;
+   graphs at u8 PSNR >= PSNR_BAR, the card's noise rows against the
+   CPU's draw of the same rows by offset within THREEFRY_BAR, and
+   torch.profiler's kernel table of the generate naming the threefry
+   kernel and K1;
 8. serving over HTTP: the port's server (sg2im_tpu_torch.cli.serve) with
    the same vg128 weights, written as a checkpoint, in bf16 / 'split', on
    the turbo tier at a calibration file made on the card and in bf16 /
@@ -173,11 +179,13 @@ with a non-zero exit code:
    'packed' with its profile; profile_crn's per-stage times, its modes
    equal in f32; roofline_train's rows of the COCO-64 b32 step in both
    configurations with their idle shares; profile_seeded_noise's eager,
-   seeded and zero-noise paths, eager and seeded bit-identical;
-   profile_turbo_frontier's bands.  Each exits 0, launches the kernels of
-   its path, and every row is there and finite, with no share of a
-   data-sheet peak or of the speed of light above SHARE_BAR.  Their output
-   goes to build/chip_smoke/measure_*.log;
+   seeded and zero-noise paths, eager and seeded bit-identical, the draw
+   seen by the profiler; profile_turbo_frontier's bands.  Each exits 0,
+   launches the kernels of its path, and every row is there and finite,
+   with no share of a data-sheet peak or of the speed of light above
+   SHARE_BAR; then a kernel table of three threefry draws, this late in
+   the run, counts one kernel a draw.  Their output goes to
+   build/chip_smoke/measure_*.log;
 17. bench: sg2im_tpu_torch.tools.bench (the port's bench.py) at its
    defaults (vg128 b128 bf16 / 'split' on bench.py's inputs, 10
    iterations, 3 windows, the extras) and with --mode train: exit 0, every
@@ -228,6 +236,7 @@ import numpy as np
 from sg2im_tpu_torch.tools._measure import (
     KERNEL_BAR,
     LAYOUT_TIMED,
+    kernel_table,
     layout_inputs,
     time_ms,
     vg128_config,
@@ -834,8 +843,11 @@ def phase_relayout(torch, card):
 
 
 # name: (seed, (N, C, H, W), f, offset, channels_last).  Seeds at the int32
-# edges, an odd shape, every upsample factor, both memory formats and an
-# offset whose counters cross 2^32 (hi word nonzero).
+# edges, an odd shape, every upsample factor, both memory formats, offsets
+# whose counters cross 2^32 (hi word nonzero; 2^32 - 3 crosses inside one
+# thread's run of V values in every walk), and the kernel's ragged edges: C
+# and W / f not multiples of V (4 values a thread in f32, 8 in bf16; C 33
+# and C 19 = 8 * 2 + 3 in both formats).
 THREEFRY_CASES = {
     **{f"seed {s} N3 C5 37x29": (s, (3, 5, 37, 29), 1, 0, False)
        for s in (0, 7, 2 ** 31 - 1, -1, -2 ** 31)},
@@ -845,6 +857,15 @@ THREEFRY_CASES = {
     "f4 N2 C32 32x16 channels_last": (12, (2, 32, 32, 16), 4, 0, True),
     "offset 2^32-700 N2 C5 16x16": (1, (2, 5, 16, 16), 1, 2 ** 32 - 700,
                                     False),
+    "C33 N2 14x10 channels_last": (13, (2, 33, 14, 10), 1, 0, True),
+    "f2 C33 N2 14x10 channels_last": (13, (2, 33, 14, 10), 2, 0, True),
+    "C19 N2 13x22": (14, (2, 19, 13, 22), 1, 0, False),
+    "f2 C19 N2 12x20 channels_last": (14, (2, 19, 12, 20), 2, 0, True),
+    "offset 2^32-3 N2 C5 9x7 channels_last": (15, (2, 5, 9, 7), 1,
+                                              2 ** 32 - 3, True),
+    "offset 2^32-3 N2 C5 9x7": (15, (2, 5, 9, 7), 1, 2 ** 32 - 3, False),
+    "f2 offset 2^32-3 N2 C5 10x14 channels_last": (16, (2, 5, 10, 14), 2,
+                                                   2 ** 32 - 3, True),
 }
 # name: (seed, (N, C, H, W), dtype, channels_last): the draws the paths
 # make at their own shapes, each held whole against the plain version.
@@ -857,13 +878,19 @@ THREEFRY_PATH_CASES = {
         (4, (16, 32, 128, 128), "float32", True),
 }
 THREEFRY_TIMED = (128, 32, 128, 128)  # vg128 b128: 67.1 M values
+# The other timed draws, (N, C, H, W), f, channels_last: the COCO-64 train
+# step's NCHW draw and vg128 b128 at --noise_downsample 2.
+THREEFRY_TIMED_MORE = {"train step NCHW f32": ((32, 32, 64, 64), 1, False),
+                       "b128 f2 channels_last f32": ((128, 32, 128, 128), 2,
+                                                     True)}
 THREEFRY_BAR = 1e-6  # normals, kernel against the plain version
 THREEFRY_SOURCE = "sg2im_tpu_torch/csrc/threefry.cu"
 
 
 def threefry_sass_mix(mode: int) -> dict:
-    """{opcode: count} of the threefry kernel's instance for ``mode`` (1
-    f32, 2 bf16) in the built library, by cuobjdump -sass."""
+    """{opcode: count} of the threefry kernel's main-path instance for
+    ``mode`` (1 f32, 2 bf16): the flat walk at f 1 without the carry, in
+    the built library, by cuobjdump -sass."""
     from sg2im_tpu_torch.ops import _build
     from sg2im_tpu_torch.utils.roofline import sass_mix
 
@@ -873,7 +900,8 @@ def threefry_sass_mix(mode: int) -> dict:
         "threefry.cu"))], capture_output=True, text=True, timeout=120)
     if out.returncode != 0:
         fail(f"cuobjdump -sass failed: {out.stderr[-2000:]}")
-    mix = sass_mix(out.stdout, f"threefry_normal_kernelILi{mode}ELi1E")
+    mix = sass_mix(out.stdout,
+                   f"threefry_normal_kernelILi{mode}ELi0ELi1ELb0E")
     if not mix:
         fail(f"no SASS found for the threefry kernel's mode {mode}")
     return mix
@@ -949,14 +977,14 @@ def phase_threefry(torch, card):
     where it lies, a data-parallel row slice drawn by offset, the paths'
     own draws (THREEFRY_PATH_CASES); then its time at vg128 b128 in f32
     and bf16 beside the plain version and torch.randn (a reference, not
-    the same function), its bound from the integer operations the
-    function needs (its SASS printed beside them); and the split kernel
+    the same function), its bound from the least instructions this ISA
+    needs a value (its SASS printed beside them); and the split kernel
     against the plain split, bit for bit, and timed beside it at the train
     step's split(key).  -> (errs, times)."""
     from sg2im_tpu_torch.ops import prng
     from sg2im_tpu_torch.ops import prng_kernel as pk
     from sg2im_tpu_torch.utils.roofline import (
-        INT_OPCODES, THREEFRY_INT_OPS, threefry_bounds)
+        INT_OPCODES, THREEFRY_OPS, threefry_bounds)
 
     errs = {"f32": 0.0, "bf16": 0.0}
     with torch.inference_mode():
@@ -1006,6 +1034,18 @@ def phase_threefry(torch, card):
             "randn_bf16": time_ms(lambda: torch.randn(
                 (N, H, W, C), device="cuda", dtype=torch.bfloat16)),
         }
+        for name, (shape, f, last) in THREEFRY_TIMED_MORE.items():
+            fmt = torch.channels_last if last else torch.contiguous_format
+            times[name] = time_ms(lambda: pk.threefry_normal(
+                key, shape, f=f, device="cuda", memory_format=fmt))
+            got = pk.threefry_normal(key, shape, f=f, device="cuda",
+                                     memory_format=fmt)
+            want = pk._plain(lambda k, s, d: prng.normal(k, s, device=d),
+                             key, shape, f, fmt, torch.device("cuda"))
+            errs[name] = (got - want).abs().max().item()
+            if not errs[name] <= THREEFRY_BAR:
+                fail(f"threefry timed {name}: max_abs_err {errs[name]:.3e}")
+            del got, want
         if pk.threefry_normal.launches == before:
             fail("the timed threefry kernel was not launched")
         torch.cuda.empty_cache()
@@ -1055,33 +1095,47 @@ def phase_threefry(torch, card):
     clock_hz = float(smi.stdout.strip().splitlines()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     values = N * C * H * W
-    # split(key): two keys of two words written, each the hash without its
-    # final xor.
-    times["split_bound"] = threefry_bounds(2, 16, THREEFRY_INT_OPS["f32"] - 3,
+    # split(key): two keys of two words written, each one hash.
+    times["split_bound"] = threefry_bounds(2, 16, THREEFRY_OPS["split"],
                                            sms, clock_hz)
     for tag, mode, elem in (("f32", 1, 4), ("bf16", 2, 2)):
-        n_ops = THREEFRY_INT_OPS[tag]
-        times[f"{tag}_bound"] = threefry_bounds(values, values * elem, n_ops,
+        least = THREEFRY_OPS[tag]
+        times[f"{tag}_bound"] = threefry_bounds(values, values * elem, least,
                                                 sms, clock_hz)
         bound, by = times[f"{tag}_bound"]
-        # The kernel's own instructions, a diagnostic: not the bound.
+        # The kernel's own instructions, a diagnostic: not the bound.  A
+        # thread draws V values (one 16-byte store), so the static counts
+        # over V are per value.
         mix = threefry_sass_mix(mode)
+        V = pk.VEC_BYTES // elem
         n_int = sum(v for k, v in mix.items() if k in INT_OPCODES)
         ops = ", ".join(f"{k} {v}" for k, v in sorted(
             mix.items(), key=lambda kv: -kv[1]))
-        print(f"[threefry] {tag} kernel SASS (static, the whole function): "
+        print(f"[threefry] {tag} kernel SASS (static, the whole function of "
+              f"the flat walk, {V} values a thread): "
               f"{sum(mix.values())} instructions, {n_int} on the integer "
-              f"opcodes ({ops})")
+              f"opcodes: {sum(mix.values()) / V:.1f} and {n_int / V:.1f} "
+              f"a value ({ops})")
         print(f"[threefry] b128 {tag} draw of {values} values at "
               f"{values / times[tag] / 1e6:.1f} G values/s: "
               f"{times[tag]:.4f} ms, {100 * bound / times[tag]:.1f}% of its "
-              f"{bound:.4f} ms {by} bound ({n_ops} integer operations a "
-              f"value, the function's own, on {sms} SMs x 64 lanes at "
-              f"{clock_hz / 1e6:.0f} MHz; "
+              f"{bound:.4f} ms {by} bound ({least.instructions:g} "
+              f"instructions a value, {least.alu:g} of them on the integer "
+              f"ALU: the least this ISA needs, on {sms} SMs issuing 128 a "
+              f"clock at {clock_hz / 1e6:.0f} MHz; "
               f"{values * elem / 1e9:.3f} GB written), plain "
               f"{times[tag + '_plain']:.3f} ms, torch.randn of the same "
               f"shape {times['randn' if tag == 'f32' else 'randn_bf16']:.4f}"
               f" ms (another generator: a reference); on {card}")
+    for name, (shape, f, _) in THREEFRY_TIMED_MORE.items():
+        drawn = int(np.prod(shape)) // (f * f)
+        out_bytes = int(np.prod(shape)) * 4
+        bound, by = times[f"{name}_bound"] = threefry_bounds(
+            drawn, out_bytes, THREEFRY_OPS["f32"], sms, clock_hz)
+        print(f"[threefry] {name} {shape} at f {f}, {drawn} values drawn: "
+              f"{times[name]:.4f} ms, {100 * bound / times[name]:.1f}% of "
+              f"its {bound:.4f} ms {by} bound ({out_bytes / 1e9:.3f} GB "
+              f"written), max_abs_err {errs[name]:.3e}; on {card}")
     return errs, times
 
 
@@ -1396,6 +1450,10 @@ def phase_vg128(torch, card, launches):
 
 
 SEEDED_SEED = 11        # phase_seeded's seed
+# The port's kernels the profiler must name in a seeded generate: what ->
+# a part of the kernel's name.
+SEEDED_PROFILED = {"threefry": "threefry_normal_kernel",
+                   "K1": "compose_boxes_kernel"}
 SEEDED_ROWS = (0, 124)  # the CPU draws 4 rows from each of these
 
 
@@ -1405,7 +1463,9 @@ def phase_seeded(torch, card, launches):
     against the CPU engine's seeded generate of its first two graphs (pad
     bucket 2: the same noise rows), at u8 PSNR >= PSNR_BAR, and the card's
     noise tensor against the CPU's on rows drawn there by offset, within
-    THREEFRY_BAR."""
+    THREEFRY_BAR; then torch.profiler's kernel table of one seeded
+    generate, which must name the threefry kernel and K1
+    (SEEDED_PROFILED)."""
     from sg2im_tpu_torch.inference import InferenceEngine
     from sg2im_tpu_torch.models import Sg2ImGenerator
 
@@ -1448,6 +1508,27 @@ def phase_seeded(torch, card, launches):
     if not noise_err <= THREEFRY_BAR:
         fail(f"the card's seeded noise differs from the CPU's by "
              f"{noise_err:.3e}")
+    # The profiler sees the port's own kernels (launched through ctypes):
+    # the seeded generate's table names the threefry kernel and K1.
+    table = kernel_table(lambda: card_engine.generate(graphs,
+                                                      seed=SEEDED_SEED),
+                         "cuda", iters=1, top=None)
+    rows = {what: [r for r in table["top"] if pattern in r["name"]]
+            for what, pattern in SEEDED_PROFILED.items()}
+    print(f"[seeded] torch.profiler over one seeded b128 generate: device "
+          f"{table['device_ms']:.3f} ms in {table['kernels']:.0f} kernels, "
+          f"span {table['span_ms']:.3f} ms, idle {100 * table['idle']:.1f}% "
+          f"({table['warmup_lost']} of its warm-up launches lost); the "
+          f"port's kernels: " + "; ".join(
+              f"{what} {r['name'][:60]!r} {r['ms']:.4f} ms x {r['count']:.0f}"
+              for what, found in rows.items() for r in found)
+          + "; the largest: " + ", ".join(
+              f"{r['name'][:40]!r} {r['ms']:.3f}" for r in table["top"][:6])
+          + f"; on {card}")
+    missing = [what for what, found in rows.items() if not found]
+    if missing:
+        fail(f"torch.profiler's kernel table of the seeded generate does not "
+             f"name {missing}")
 
 
 SERVE_WINDOW_MS = 30.0   # the smoke servers' --batch_window_ms
@@ -2394,22 +2475,18 @@ def _idle_share(torch, argv, log_path):
     the steps CLI_IDLE_STEPS (from the start of the first one's host
     range to the end of the last one's; --timing fences each step), the
     device's busy ms per step there and the window's ms per step."""
-    from torch.profiler import ProfilerActivity, profile
+    from sg2im_tpu_torch.utils.timing import profile_window
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile_window("cuda") as window:
         _run_cli(argv, log_path)
-    cuda = torch.autograd.DeviceType.CUDA
-    events = prof.events()
-    steps = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.name == "train_step" and e.device_type != cuda)
+    steps = sorted((e.time_range.start, e.time_range.end)
+                   for e in window.host_events if e.name == "train_step")
     first, last = CLI_IDLE_STEPS
     if len(steps) < last:
         fail(f"profiled CLI run shows {len(steps)} train_step ranges")
     lo, hi = steps[first - 1][0], steps[last - 1][1]
     spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
-                   for e in events
-                   if e.device_type == cuda and e.name != "train_step")
+                   for e in window.device_events if e.name != "train_step")
     busy, end = 0.0, lo
     for a, b in spans:  # the union of the device's intervals
         if b <= end:
@@ -2797,20 +2874,16 @@ def profile_steps(torch, trainer, state, batch):
     """PROFILED_STEPS steps under torch.profiler -> per step: kernel
     launches and memcpy calls, device ms, and host ms inside the
     collectives' c10d::allreduce_ (0 without a group)."""
-    from torch.profiler import ProfilerActivity, profile
+    from sg2im_tpu_torch.utils.timing import profile_window
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile_window("cuda") as window:
         for _ in range(PROFILED_STEPS):
             state, _ = trainer.step(state, batch)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    calls = sum(e.count for e in events if e.key in (
-        "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemcpyAsync"))
-    device = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    comm = sum(e.cpu_time_total for e in events
-               if e.key == "c10d::allreduce_")
+    calls = sum(e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                           "cudaMemcpyAsync") for e in window.host_events)
+    device = sum(e.device_time for e in window.device_events)
+    comm = sum(e.cpu_time_total for e in window.host_events
+               if e.name == "c10d::allreduce_")
     n = PROFILED_STEPS
     return calls / n, device / n / 1e3, comm / n / 1e3
 
@@ -3635,6 +3708,24 @@ def phase_measure(torch, card, launches, work):
     if sn["draw_threefry_launches"] != 1:
         fail(f"profile_seeded_noise: a draw launched the threefry kernel "
              f"{sn['draw_threefry_launches']} times, not once")
+    # Late in a long process, torch.profiler still sees the port's kernels.
+    if not (sn["draw_launches"] or 0) >= 1 or not sn["draw_device_ms"] > 0:
+        fail(f"profile_seeded_noise: torch.profiler saw "
+             f"{sn['draw_launches']} kernels, {sn['draw_device_ms']} device "
+             f"ms, in a draw that launched the threefry kernel")
+    from sg2im_tpu_torch.ops import prng
+    from sg2im_tpu_torch.ops import prng_kernel as pk
+
+    key = prng.prng_key(2)
+    table = kernel_table(lambda: pk.threefry_normal(
+        key, (8, 32, 64, 64), device="cuda",
+        memory_format=torch.channels_last), "cuda", iters=3, top=None)
+    print(f"[measure] torch.profiler late in the run: a window of three "
+          f"threefry draws shows {table['kernels']:.0f} kernel a draw "
+          f"({', '.join(r['name'][:48] for r in table['top'])}), "
+          f"{table['warmup_lost']} of its warm-up launches lost; on {card}")
+    if table["kernels"] != 1 or "threefry" not in table["top"][0]["name"]:
+        fail("torch.profiler late in the run misses threefry launches")
     print(f"[measure] profile_seeded_noise b128 bf16/split: eager "
           f"{sn['eager_img_s']:.1f} img/s, seeded {sn['seeded_img_s']:.1f},"
           f" zeros {sn['zeros_img_s']:.1f}; the draw "

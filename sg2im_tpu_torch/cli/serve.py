@@ -26,14 +26,26 @@ Device access is serialized with a lock (one forward at a time per
 engine); several scene graphs per request are padded to power-of-two
 buckets.  ``--batch_window_ms W`` also coalesces CONCURRENT requests: the
 first waiting request leads, collects followers for W ms (up to
---max_graphs in all) and runs ONE forward for all of them.  Each request's
-noise rows are drawn on the device from its own seed exactly as they would
-be unbatched (the engine's seeded-noise contract, the JAX package's: at the
-default full resolution in float32 a request of n graphs gets
-``jax.random.normal(PRNGKey(seed), (n, H, W, D))``), so pinned seeds stay
-reproducible, and equal to the JAX server's; rows are independent
-through the generator (eval-mode norms), so batchmates don't change each
-other's images beyond the convolutions' sum order (within 1 u8 level).
+--max_graphs in all) and runs ONE forward for all of them.
+
+Noise follows the JAX server exactly, on both of its paths:
+
+* a request served alone runs ``engine.generate(seed=...)``, which draws
+  the engine's seeded noise: ``jax.random.normal(PRNGKey(seed), (n, H / f,
+  W / f, D))`` at ``--noise_downsample`` f, in the engine's noise dtype,
+  nearest-upsampled to (H, W);
+* a coalesced request's rows are drawn by the batcher at full resolution
+  in float32, ``jax.random.normal(PRNGKey(seed), (n, H, W, D))``, whatever
+  f and the engine's noise dtype, and handed to the engine as explicit
+  noise, which it takes as it is (zeros for 'zeros' requests).
+
+So at the defaults (f 1, float32) a pinned seed gives the same rows alone
+and coalesced, and equal to the JAX server's.  At f > 1 (or with a
+bfloat16 noise dtype) the JAX server itself draws a request's noise
+differently coalesced and alone, and this server reproduces that rather
+than mending it.  Rows are independent through the generator (eval-mode
+norms), so batchmates don't change each other's images beyond the
+convolutions' sum order (within 1 u8 level).
 
 Example:
   python -m sg2im_tpu_torch.cli.serve --checkpoint vg128.pt --port 8041 \\
@@ -443,10 +455,16 @@ class _Batcher:
             return take
 
     def _merged_noise(self, reqs):
-        """Explicit (n, H, W, D) noise for the merged batch, on the
-        engine's device: each 'random' request's ``draw_noise(n, seed)``
-        rows, zeros for 'zeros'.  None when the model is noiseless."""
+        """Explicit (n, H, W, D) float32 noise for the merged batch, on the
+        engine's device, as the JAX server's ``_merged_noise`` gives it:
+        each 'random' request's full-resolution float32 rows
+        ``normal(PRNGKey(seed), (n, H, W, D))`` whatever the engine's
+        ``noise_downsample`` and ``noise_dtype``, zeros for 'zeros'.  None
+        when the model is noiseless."""
         import torch
+
+        from sg2im_tpu_torch.ops.prng import prng_key
+        from sg2im_tpu_torch.ops.prng_kernel import threefry_normal
 
         e = self.engine
         D = e.model.layout_noise_dim
@@ -454,7 +472,10 @@ class _Batcher:
             return None
         H, W = e.model.image_size
         rows = [torch.zeros((len(r.sgs), D, H, W), device=e.device)
-                if r.noise_mode == "zeros" else e.draw_noise(len(r.sgs), r.seed)
+                if r.noise_mode == "zeros" else threefry_normal(
+                    prng_key(r.seed), (len(r.sgs), D, H, W), f=1,
+                    dtype=torch.float32, device=e.device,
+                    memory_format=torch.channels_last)
                 for r in reqs]
         return torch.cat(rows).permute(0, 2, 3, 1)
 

@@ -596,7 +596,7 @@ def _train(args, config: TrainConfig, device, rank: int = 0,
     train_loader.start_at(t)
     switched = 0 <= config.eval_mode_after < t
     last_end, waited = time.perf_counter(), 0.0
-    with profile_trace(args.profile_dir):
+    with profile_trace(args.profile_dir, device):
         while t < config.num_iterations:
             host_batches = iter(train_loader)
             batches = prefetch_to_device(host_batches, device=device)

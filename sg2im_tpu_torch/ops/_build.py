@@ -36,7 +36,6 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _U32 = ctypes.c_uint
 _U64 = ctypes.c_ulonglong
-_I64 = ctypes.c_longlong
 # source -> {C entry point: argtypes} (every entry returns cudaError_t as int).
 SOURCES = {
     "layout_compose.cu": {
@@ -54,8 +53,8 @@ SOURCES = {
         "sg2im_depth_to_space": [_PTR] * 2 + [_INT] * 5 + [_PTR],
     },
     "threefry.cu": {
-        "sg2im_threefry_normal": [_PTR, _PTR, _U32, _U32, _U64] + [_INT] * 6
-        + [_I64] * 4 + [_INT, _PTR],
+        "sg2im_threefry_normal": [_PTR, _PTR, _U32, _U32, _U64] + [_INT] * 10
+        + [_U32, _INT, _INT] + [_U32] * 3 + [_PTR],
         "sg2im_threefry_split": [_PTR, _PTR, _U32, _U32, _INT, _PTR],
     },
 }

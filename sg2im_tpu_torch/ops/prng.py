@@ -58,8 +58,12 @@ _FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def key_words(key) -> tuple[int, int]:
-    """The two uint32 words of a key (a (2,) tensor, array or sequence)."""
+    """The two uint32 words of a key: a (2,) tensor (uint32 or its int32
+    bits read as uint32), array or sequence."""
     if isinstance(key, torch.Tensor):
+        if key.dtype in (torch.uint32, torch.int32) and key.shape == (2,):
+            k0, k1 = key.detach().view(torch.int32).tolist()
+            return k0 & MASK32, k1 & MASK32
         key = key.detach().cpu().to(torch.int64).tolist()
     words = [int(w) for w in np.asarray(key).reshape(-1).tolist()]
     if len(words) != 2 or not all(0 <= w <= MASK32 for w in words):

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from sg2im_tpu_torch.utils.roofline import FlopCounter, layout_bounds
+from sg2im_tpu_torch.utils.timing import profile_window
 
 # K1's timed instance: the flagship's batch-128 layout compose, as every
 # serving mode runs it (N, O, M, H, W, D).
@@ -92,28 +93,26 @@ def windows_ms(fn, device, windows: int, iters: int) -> list[float]:
     return out
 
 
-def kernel_table(fn, device, iters: int = 3, top: int = 10) -> dict | None:
-    """``torch.profiler`` over ``iters`` calls of ``fn`` on the card: device
-    ms and kernels per call (kernels and copies), the span per call (CUDA
-    events around the calls), the idle share 1 - device / span, and the
-    ``top`` kernels by device ms per call.  None on the CPU."""
+def kernel_table(fn, device, iters: int = 3,
+                 top: int | None = 10) -> dict | None:
+    """``torch.profiler`` over ``iters`` calls of ``fn`` on the card
+    (:func:`~sg2im_tpu_torch.utils.timing.profile_window`): device ms and
+    kernels per call (kernels and copies), the span per call (CUDA events
+    around the calls), the idle share 1 - device / span, the ``top``
+    kernels by device ms per call (all of them for None), and
+    ``warmup_lost``, the window's warm-up launches the profiler lost.
+    None on the CPU."""
     if torch.device(device).type != "cuda":
         return None
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile_window(device) as window:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         for _ in range(iters):
             fn()
         b.record()
-        torch.cuda.synchronize(device)
     span = a.elapsed_time(b) / iters
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = window.device_events
     busy = sum(e.device_time for e in kernels) / 1e3 / iters
     by_name: dict[str, list] = {}
     for e in kernels:
@@ -124,7 +123,29 @@ def kernel_table(fn, device, iters: int = 3, top: int = 10) -> dict | None:
     return {"device_ms": busy, "kernels": len(kernels) / iters,
             "span_ms": span, "idle": 1.0 - busy / span if span > 0 else None,
             "top": [{"name": n, "ms": ms, "count": c / iters}
-                    for n, (ms, c) in ranked]}
+                    for n, (ms, c) in ranked],
+            "warmup_lost": window.warmup_lost}
+
+
+def run_worker(script, root, argv) -> dict:
+    """``python -P script --worker *argv`` in a process of its own, from
+    the checkout at ``root`` with that root alone on the path (the A/B
+    tools' turns); -> its last line of output as JSON, less ``module``,
+    the file of the package it imported, which must lie in ``root``."""
+    import subprocess
+    from pathlib import Path
+
+    cmd = [sys.executable, "-P", str(script), "--worker", *map(str, argv)]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(root)})
+    if proc.returncode != 0:
+        raise RuntimeError(f"the worker of {root} exited "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    module = Path(result.pop("module")).resolve()
+    if not module.is_relative_to(Path(root).resolve()):
+        raise RuntimeError(f"the worker of {root} imported {module}")
+    return result
 
 
 def count_flops(fn, k1_shape=None) -> tuple[dict, dict]:

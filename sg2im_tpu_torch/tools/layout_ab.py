@@ -30,8 +30,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -75,20 +73,11 @@ def worker(argv) -> int:
 def run_worker(root: Path, inputs: Path, device, iters: int, save) -> dict:
     """{tag: ms} of the checkout at ``root``, timed in a process of its
     own; its outputs written into ``save`` when given."""
-    cmd = [sys.executable, "-P", str(Path(__file__).resolve()), "--worker",
-           str(inputs), "--device", str(device), "--iters", str(iters)]
-    if save is not None:
-        cmd += ["--save", str(save)]
-    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                          env={**os.environ, "PYTHONPATH": str(root)})
-    if proc.returncode != 0:
-        raise RuntimeError(f"the worker of {root} exited "
-                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
-    result = json.loads(proc.stdout.strip().splitlines()[-1])
-    module = Path(result.pop("module")).resolve()
-    if not module.is_relative_to(root.resolve()):
-        raise RuntimeError(f"the worker of {root} imported {module}")
-    return result
+    from sg2im_tpu_torch.tools._measure import run_worker as run
+
+    argv = [inputs, "--device", device, "--iters", iters]
+    return run(Path(__file__).resolve(), root,
+               argv + (["--save", save] if save is not None else []))
 
 
 def check_saved(save: Path, want, device) -> dict:

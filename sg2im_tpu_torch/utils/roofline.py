@@ -35,6 +35,7 @@ measured in the same run.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -95,8 +96,11 @@ def conv_bounds(N, H, W, Cin, Co, elem_size):
     return nbytes, 2 * N * H * W * 9 * Cin * Co
 
 
-# Hopper's 32-bit integer lanes per SM (16 in each of its 4 sub-partitions).
+# Hopper's 32-bit integer ALU lanes per SM (16 in each of its 4
+# sub-partitions), and the thread instructions an SM issues a clock (one
+# warp instruction in each sub-partition).
 INT32_LANES_PER_SM = 64
+ISSUE_LANES_PER_SM = 128
 # SASS opcodes (before the first '.') that run on the integer pipes.
 INT_OPCODES = frozenset((
     "IADD3", "IADD", "IMAD", "LEA", "LOP3", "LOP", "SHF", "SHL", "SHR",
@@ -125,26 +129,51 @@ def sass_mix(sass: str, function_part: str) -> dict:
     return mix
 
 
-# 32-bit integer operations that one threefry normal needs, whatever the
-# kernel: the threefry2x32-20 hash (20 rounds of add, rotate and xor: 60;
-# the key added at the start and at 5 injections, 2 adds each: 12; the two
-# output words XORed: 1) and the uniform's mantissa bits (float32: a shift
-# and an or; bfloat16: an and, a shift and an or).  Per-key work (the key
-# schedule, the injection constants), counters and addresses are not
-# counted, and neither is the float arithmetic of the uniform and of
-# erf_inv, which runs on the float pipes (twice the integer lanes).
-THREEFRY_INT_OPS = {"f32": 73 + 2, "bf16": 73 + 3}
+class ThreefryOps(NamedTuple):
+    """The least instructions one threefry value needs on this ISA: all of
+    them (each takes an issue slot) and those that only the integer ALU
+    can run."""
+    instructions: float
+    alu: float
 
 
-def threefry_bounds(values: int, out_bytes: int, int_per_value: float,
+# The least that one threefry value needs on Hopper's ISA, whatever the
+# kernel.  The threefry2x32-20 hash: 20 rounds of an add, a rotate (one
+# funnel shift, SHF.L.W) and an xor (LOP3): 60; the key's adds: the
+# counter's hi word plus k0 is the same for 2^32 values and k1 folds into
+# the counter's own add, the first four x0 injections fold into the next
+# round's add (IADD3 takes three operands), the fifth does not, and each
+# x1 injection is its own add (the next round rotates it): 6; the output
+# words' xor: 1.  The uniform's mantissa: float32's (b >> 9) | 0x3F800000
+# is one funnel shift of (0x7F : b); bfloat16's as float32 bits,
+# ((b & 0xFE) << 15) | 0x3F800000, an and and a multiply-add: 68 and 69
+# integer instructions.  Float, on every value (the central polynomial;
+# the tail's extra work, the compare, the branch, counters, addresses and
+# stores are not counted): x * -x, log1p (one MUFU.LG2 at least), w - 2.5,
+# 8 Horner FMAs and the product with x, 12 in float32; the uniform's
+# f - 1 and its fused affine map and the product with sqrt(2), 3 in
+# float32, 1.5 in bfloat16 (two values share a packed instruction) plus
+# half a packed rounding to bfloat16: 15 and 14.  Only the xors (20 in
+# the rounds, 1 at the end) are bound to the ALU: an add runs as an IMAD
+# on the FMA pipe, a rotate as two (the low and high words of x * 2^r),
+# and a shift-or as one IMAD.HI.  split(key) writes a key a hash, without
+# the final xor and with no uniform: 66 and 20.
+THREEFRY_OPS = {"f32": ThreefryOps(68 + 15, 21),
+                "bf16": ThreefryOps(69 + 14, 21),
+                "split": ThreefryOps(66, 20)}
+
+
+def threefry_bounds(values: int, out_bytes: int, ops: ThreefryOps,
                     sms: int, clock_hz: float):
     """(bound ms, "bytes" or "operations") of one threefry draw of
-    ``values`` values: its output's ``out_bytes`` written once at the
-    card's memory rate, against ``int_per_value`` 32-bit integer
-    operations per value (:data:`THREEFRY_INT_OPS`, the function's own
-    count) issued on ``sms`` SMs' integer lanes at ``clock_hz``."""
+    ``values`` values: the larger of its output's ``out_bytes`` written
+    once at the card's memory rate, the ``ops.instructions`` a value
+    issued on ``sms`` SMs at ``clock_hz``, and the ``ops.alu`` a value on
+    their integer ALU lanes (:data:`THREEFRY_OPS`, the least this ISA
+    needs)."""
     t_bytes = out_bytes / HBM_BYTES
-    t_ops = values * int_per_value / (sms * INT32_LANES_PER_SM * clock_hz)
+    t_ops = values * max(ops.instructions / ISSUE_LANES_PER_SM,
+                         ops.alu / INT32_LANES_PER_SM) / (sms * clock_hz)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 

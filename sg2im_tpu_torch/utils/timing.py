@@ -50,24 +50,96 @@ def get_device_memory(device=None) -> dict:
             if k.endswith("bytes.all.current") or k.endswith("bytes.all.peak")}
 
 
+# In a process that has run for a while, torch.profiler (Kineto over CUPTI)
+# can lose the first device records of a session: all three launches of a
+# short window, or a generate's first kernels.  Throwaway launches of the
+# spin kernel at the window's start, synchronized before the block, take
+# that loss; the window's records leave them out.
+PROFILE_WARMUP_LAUNCHES = 1024
+_WARMUP_KERNEL = "spin_kernel"
+_BLOCK = "profile_window.block"
+
+
+class ProfileWindow:
+    """What :func:`profile_window` saw: ``prof`` (the ``torch.profiler``
+    session), and once the block is done ``device_events`` and
+    ``host_events`` (the block's records, the warm-up left out) and
+    ``warmup_lost`` (the warm-up launches the profiler lost)."""
+
+    def __init__(self, prof):
+        self.prof = prof
+        self.device_events: list = []
+        self.host_events: list = []
+        self.warmup_lost = 0
+
+
 @contextlib.contextmanager
-def profile_trace(log_dir: str | None):
-    """``torch.profiler`` over the block (the host and, when there is a
-    card, its kernels), written as a Chrome trace to
-    ``<log_dir>/trace.json``; a no-op when ``log_dir`` is None."""
+def profile_window(device=None, strict: bool = True):
+    """``torch.profiler`` over the block: the host, and the card's kernels
+    when ``device`` is a card, where the window opens with
+    PROFILE_WARMUP_LAUNCHES synchronized spin launches that take the
+    records a long-running process loses.  Yields a
+    :class:`ProfileWindow`; raises RuntimeError after the block when the
+    profiler lost every warm-up launch (the block's own records may then
+    be missing), or with ``strict`` False warns."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    on_card = device is not None and torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
+    with profile(activities=activities) as prof:
+        window = ProfileWindow(prof)
+        if on_card:
+            with torch.cuda.device(device):
+                for _ in range(PROFILE_WARMUP_LAUNCHES):
+                    torch.cuda._sleep(1)
+            torch.cuda.synchronize(device)
+        with record_function(_BLOCK):
+            yield window
+        if on_card:
+            torch.cuda.synchronize(device)
+    if not on_card:
+        window.host_events = [e for e in prof.events() if e.name != _BLOCK]
+        return
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    marks = [e.time_range.start for e in events if e.name == _BLOCK]
+    start = marks[0] if marks else float("-inf")
+    # The block's marker also stands on the card's timeline, as a range.
+    device_events = [e for e in events
+                     if e.device_type == cuda and e.name != _BLOCK]
+    window.device_events = [e for e in device_events
+                            if _WARMUP_KERNEL not in e.name]
+    window.host_events = [e for e in events if e.device_type != cuda
+                          and e.name != _BLOCK
+                          and e.time_range.start >= start]
+    window.warmup_lost = PROFILE_WARMUP_LAUNCHES - (
+        len(device_events) - len(window.device_events))
+    if window.warmup_lost >= PROFILE_WARMUP_LAUNCHES:
+        msg = ("torch.profiler lost every warm-up launch of the window: "
+               "its records may miss the block's first kernels")
+        if strict:
+            raise RuntimeError(msg)
+        warnings.warn(msg)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str | None, device=None):
+    """``torch.profiler`` over the block (the host and, on a card
+    ``device``, its kernels, through :func:`profile_window`), written as a
+    Chrome trace to ``<log_dir>/trace.json``; a no-op when ``log_dir`` is
+    None."""
     if not log_dir:
         yield None
         return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-        _sync()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with profile_window(device, strict=False) as window:
+        yield window.prof
+    window.prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class LossManager:

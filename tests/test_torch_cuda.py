@@ -356,6 +356,62 @@ def test_threefry_path_draws_match_plain_version(card, name):
     assert err <= chip_smoke.THREEFRY_BAR
 
 
+@pytest.mark.parametrize("f,channels_last", [(1, True), (2, True),
+                                               (1, False), (2, False)])
+def test_threefry_ragged_runs_across_two_to_the_32(card, f, channels_last):
+    """The kernel's runs of V values at a ragged shape (C 37 and W / f 13:
+    no multiple of 4 or 8) from an offset whose counters cross 2^32 inside
+    a run: bits bit-equal to the plain version, and the normals' plan the
+    carry instance."""
+    from sg2im_tpu_torch.ops import prng
+    from sg2im_tpu_torch.ops import prng_kernel as pk
+
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    shape, offset, key = (3, 37, 11 * f, 13 * f), 2 ** 32 - 5, prng.prng_key(9)
+    assert pk.normal_plan(shape, f, fmt, torch.int32, offset).carry
+    got = pk.threefry_bits(key, shape, f=f, offset=offset, device=card,
+                           memory_format=fmt)
+    want = pk.threefry_bits(key, shape, f=f, offset=offset,
+                            memory_format=fmt)
+    assert got.is_contiguous(memory_format=fmt)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_kernel_table_counts_the_ports_kernels(card):
+    """tools/_measure.kernel_table over a window that launches only the
+    port's kernels (the threefry draw, through ctypes) counts each launch
+    and leaves out its own warm-up launches."""
+    from sg2im_tpu_torch.ops import prng
+    from sg2im_tpu_torch.ops import prng_kernel as pk
+    from sg2im_tpu_torch.tools._measure import kernel_table
+
+    key = prng.prng_key(2)
+    table = kernel_table(lambda: pk.threefry_normal(
+        key, (8, 32, 64, 64), device=card,
+        memory_format=torch.channels_last), card, iters=3, top=None)
+    names = [r["name"] for r in table["top"]]
+    assert table["kernels"] == 1 and table["device_ms"] > 0
+    assert len(names) == 1 and "threefry_normal_kernel" in names[0]
+
+
+def test_profile_window_leaves_out_its_warm_up(card):
+    """utils/timing.profile_window on the card: the block's one kernel and
+    its one launch, none of the window's warm-up launches."""
+    from sg2im_tpu_torch.utils.timing import (
+        PROFILE_WARMUP_LAUNCHES,
+        profile_window,
+    )
+
+    x = torch.ones(1 << 20, device=card)
+    with profile_window(card) as window:
+        x.mul_(2)
+    launches = [e for e in window.host_events
+                if e.name.startswith("cudaLaunchKernel")]
+    assert len(window.device_events) == 1 and len(launches) == 1
+    assert "spin_kernel" not in window.device_events[0].name
+    assert 0 <= window.warmup_lost < PROFILE_WARMUP_LAUNCHES
+
+
 def test_threefry_key_on_the_card_and_refusals(card):
     """A key split on the card is read where it lies and draws what its
     words by value draw; f outside {1, 2, 4} and a key of another shape

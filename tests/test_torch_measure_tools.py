@@ -247,3 +247,17 @@ def test_h2d_copy_stages_the_batch_into_one_buffer():
     for a, b in zip(back, batch.values()):
         assert np.array_equal(a, b)
     assert train_proof.h2d_copy(batch, "cpu") is None
+
+
+def test_profile_window_on_the_cpu():
+    """utils/timing.profile_window on the CPU: the block's host records
+    (its own marker left out), no device records, no warm-up; kernel_table
+    is None there."""
+    from sg2im_tpu_torch.utils.timing import profile_window
+
+    with profile_window("cpu") as window:
+        torch.ones(4).sum()
+    names = {e.name for e in window.host_events}
+    assert "aten::sum" in names and "profile_window.block" not in names
+    assert window.device_events == [] and window.warmup_lost == 0
+    assert M.kernel_table(lambda: None, "cpu") is None

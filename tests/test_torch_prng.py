@@ -93,6 +93,22 @@ def test_split_wrapper_plain_path_matches_jax(seed):
         pk.threefry_split(prng.prng_key(seed), 0)
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+def test_key_words_read_every_form_of_a_key(seed):
+    """key_words gives JAX's two uint32 words for a uint32 key, for its
+    int32 bits (words of 2^31 and above read back whole), for int64 and
+    numpy keys and for a sequence; a word outside uint32 is refused."""
+    want = tuple(int(w) for w in np.asarray(jax.random.PRNGKey(seed)))
+    tk = prng.prng_key(seed)
+    for key in (tk, tk.view(torch.int32), tk.to(torch.int64),
+                np.asarray(want, np.uint32), list(want)):
+        assert prng.key_words(key) == want
+    with pytest.raises(ValueError, match="two uint32 words"):
+        prng.key_words(torch.tensor([-1, 0]))
+    with pytest.raises(ValueError, match="two uint32 words"):
+        prng.key_words([0, 0, 0])
+
+
 def test_seeds_outside_int32_raise():
     for seed in (2 ** 31, -2 ** 31 - 1):
         with pytest.raises(ValueError, match="fit int32"):
@@ -260,28 +276,41 @@ def test_engine_noise_knobs(weights):
         e.generate(GRAPHS[:1], seed=2 ** 31)
 
 
-def test_server_rows_are_the_jax_servers(weights):
-    """The port server's merged noise for coalesced requests: each
-    'random' request's rows are ``normal(PRNGKey(seed), (n, H, W, D))``,
-    as the JAX server draws them, zeros for 'zeros'."""
+@pytest.mark.parametrize("noise_dtype", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("noise_downsample", [1, 2], ids=["f1", "f2"])
+def test_server_rows_are_the_jax_servers(weights, noise_downsample,
+                                         noise_dtype):
+    """The port server's merged noise for coalesced requests equals the
+    JAX server's own ``_Batcher._merged_noise``: each 'random' request's
+    rows ``normal(PRNGKey(seed), (n, H, W, D))`` at full resolution in
+    float32, zeros for 'zeros', whatever the engine's noise_downsample and
+    noise_dtype (the JAX server's merged call ignores both)."""
+    from types import SimpleNamespace
+
+    from sg2im_tpu.cli.serve import _Batcher as JaxBatcher
     from sg2im_tpu_torch.cli.serve import _Batcher, _Request
 
     state, _ = weights
-    batcher = _Batcher(InferenceEngine(VOCAB, MODEL, state, device="cpu"),
-                       max_graphs=16, window_ms=0)
+    engine = InferenceEngine(VOCAB, MODEL, state, device="cpu",
+                             noise_downsample=noise_downsample,
+                             noise_dtype=noise_dtype)
+    batcher = _Batcher(engine, max_graphs=16, window_ms=0)
+    reqs = [_Request(GRAPHS[:2], "random", 5),
+            _Request(GRAPHS[:1], "zeros", 0),
+            _Request(GRAPHS, "random", -3)]
     try:
-        reqs = [_Request(GRAPHS[:2], "random", 5),
-                _Request(GRAPHS[:1], "zeros", 0),
-                _Request(GRAPHS, "random", -3)]
-        got = batcher._merged_noise(reqs).numpy()
+        got = batcher._merged_noise(reqs)
     finally:
         batcher.close()
-    want = np.concatenate([
-        np.asarray(jax.random.normal(jax.random.PRNGKey(5), (2, 16, 16, 4))),
-        np.zeros((1, 16, 16, 4), np.float32),
-        np.asarray(jax.random.normal(jax.random.PRNGKey(-3),
-                                     (3, 16, 16, 4)))])
-    np.testing.assert_allclose(got, want, rtol=0, atol=NORMAL_BAR)
+    stub = SimpleNamespace(engine=SimpleNamespace(model_kwargs=MODEL))
+    want = JaxBatcher._merged_noise(stub, reqs)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=NORMAL_BAR)
+    np.testing.assert_allclose(
+        want[:2], np.asarray(jax.random.normal(jax.random.PRNGKey(5),
+                                               (2, 16, 16, 4))),
+        rtol=0, atol=0)
 
 
 def test_train_step_with_noise_continues_the_jax_key():

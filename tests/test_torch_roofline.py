@@ -262,19 +262,25 @@ SASS = """\
 def test_sass_mix_and_threefry_bound():
     """cuobjdump -sass text -> opcode counts of the named instance alone
     (modifiers and predicates dropped), and the threefry bound: the
-    larger of the output's bytes at 3.35 TB/s and the integer
-    operations the function needs (the hash's 73 and the uniform's) on
-    SMs x 64 lanes at the clock."""
+    largest of the output's bytes at 3.35 TB/s, the least instructions a
+    value this ISA needs issued at 128 an SM a clock, and the xors on the
+    64 integer ALU lanes of an SM."""
     mix = R.sass_mix(SASS, "threefry_normal_kernelILi1ELi1E")
     assert mix == {"LDC": 1, "IADD3": 2, "SHF": 1, "UIADD3": 1, "FFMA": 1}
     assert sum(v for k, v in mix.items() if k in R.INT_OPCODES) == 3
     assert R.sass_mix(SASS, "nothing") == {}
-    assert R.THREEFRY_INT_OPS == {"f32": 75, "bf16": 76}
+    assert R.THREEFRY_OPS == {"f32": (83, 21), "bf16": (83, 21),
+                              "split": (66, 20)}
     values = 128 * 32 * 128 * 128
-    ms, by = R.threefry_bounds(values, 4 * values, R.THREEFRY_INT_OPS["f32"],
+    ms, by = R.threefry_bounds(values, 4 * values, R.THREEFRY_OPS["f32"],
                                132, 1.98e9)
     assert by == "operations"
-    assert ms == pytest.approx(values * 75 / (132 * 64 * 1.98e9) * 1e3)
-    assert 0.30 < ms < 0.31
-    ms, by = R.threefry_bounds(values, 4 * values, 1, 132, 1.98e9)
+    assert ms == pytest.approx(values * 83 / (132 * 128 * 1.98e9) * 1e3)
+    assert 0.16 < ms < 0.17
+    # Where the ALU's share of the work outweighs the issue's, it binds.
+    ms, by = R.threefry_bounds(values, 4 * values, R.ThreefryOps(30, 20),
+                               132, 1.98e9)
+    assert ms == pytest.approx(values * 20 / (132 * 64 * 1.98e9) * 1e3)
+    ms, by = R.threefry_bounds(values, 4 * values, R.ThreefryOps(1, 0),
+                               132, 1.98e9)
     assert by == "bytes" and ms == pytest.approx(4 * values / 3.35e12 * 1e3)

@@ -304,6 +304,54 @@ def test_batcher_coalesces_concurrent_requests(batch_server):
     assert by_seed[0]["images"][0] != by_seed[1]["images"][0]
 
 
+def test_coalesced_noise_at_noise_downsample_2_is_the_jax_servers():
+    """At --noise_downsample 2 the JAX server draws a request's noise
+    otherwise coalesced than alone, and the port's server reproduces that:
+    coalesced, a request's rows are the full-resolution float32
+    ``normal(PRNGKey(seed), (n, H, W, D))`` passed to the engine as
+    explicit noise; alone, the engine's own seeded draw at f 2.  Each is
+    held to the engine called on that noise, bit for bit, and the two
+    images of one seed differ."""
+    import torch
+
+    from sg2im_tpu_torch.cli.serve import (
+        _Batcher,
+        _Request,
+        build_engines,
+        build_parser,
+    )
+    from sg2im_tpu_torch.ops import prng
+
+    args = build_parser().parse_args(
+        ["--checkpoint", CKPT, "--device", "cpu", "--noise_downsample", "2"])
+    (engine,) = build_engines(args)
+    D = engine.model.layout_noise_dim
+    H, W = engine.model.image_size
+    assert engine.noise_downsample == 2 and D > 0
+    graphs = _graphs()[:2]
+    batcher = _Batcher(engine, max_graphs=8, window_ms=0)
+    try:
+        a, b = _Request([SG], "random", 7), _Request(graphs, "random", 8)
+        batcher._run([a, b])
+        alone = _Request([SG], "random", 7)
+        batcher._run([alone])
+    finally:
+        batcher.close()
+    assert a.error is None and b.error is None and alone.error is None
+    full = torch.cat([prng.normal(prng.prng_key(7), (1, H, W, D)),
+                      prng.normal(prng.prng_key(8), (2, H, W, D))])
+    want, _ = engine.generate([SG] + graphs, noise=full)
+    np.testing.assert_array_equal(a.result[0], want[:1])
+    np.testing.assert_array_equal(b.result[0], want[1:])
+    f2 = engine.draw_noise(1, 7).permute(0, 2, 3, 1)
+    assert torch.equal(f2[:, ::2, ::2], f2[:, 1::2, 1::2])
+    want_alone, _ = engine.generate([SG], noise=f2)
+    np.testing.assert_array_equal(alone.result[0], want_alone)
+    np.testing.assert_array_equal(alone.result[0],
+                                  engine.generate([SG], seed=7)[0])
+    assert np.abs(alone.result[0].astype(int) - a.result[0]).max() > 1
+
+
 def test_batcher_isolates_bad_requests(batch_server):
     base, _ = batch_server
     bad = {"scene_graphs": [{"objects": ["not-in-vocab"],
