@@ -30,7 +30,9 @@ with a non-zero exit code:
 5. relayout: both entries of the space-to-depth / depth-to-space kernel
    bit-equal to their plain versions at the packed CRN's batch-128 shapes
    and on ragged and unaligned cases, then their time beside the plain
-   version's and beside a copy_ of the same bytes;
+   version's, beside a copy_ of the same bytes and beside the one copy
+   that computes the same function (a view of the NHWC tensor permuted
+   and reshaped: torch's own relayout);
 5b. threefry: the threefry-normal kernel (the JAX package's
    jax.random.normal, drawn on the card) against its plain version
    (ops.prng) on the card: the random bits bit-equal and the normals
@@ -51,7 +53,19 @@ with a non-zero exit code:
    draw and b128 at f 2 each timed beside its bound
    (THREEFRY_TIMED_MORE); and the split kernel
    (jax.random.split, the train step's key) bit-equal to the plain split
-   and timed beside it;
+   and timed beside it, on events and on the device, beside the card's
+   least launch by the same route (an empty kernel: the launch floor,
+   printed beside its hash's bound); and the uniform entry (jax.random.uniform times a float32
+   scale, the parameter init's) bit-equal to its plain version on
+   UNIFORM_CASES (the init's bias bounds for fans 9 x 16 ... 9 x 1024,
+   its [-1, 1) x sqrt(3 var) kernel draw, ragged sizes, counters across
+   2^32), timed at the vg128 generator's largest leaf beside its bound;
+5c. init: the JAX package's parameter init (nn/init.py) of the vg128
+   generator for PRNGKey(0) drawn on the card, one threefry launch (the
+   uniform or the scaled normal) a drawn leaf and no other kernel,
+   against the CPU's plain init of the same key (uniform leaves, ones
+   and zeros bit-equal, normal leaves within THREEFRY_BAR times their
+   scale); its time beside the CPU's;
 6. the learned checkpoint artifacts/trained_coco64.pt through the
    run_model CLI on the card, in float32 and on the int8 turbo tier with a
    calibration file made on the card, each held against the CPU engine by
@@ -167,11 +181,12 @@ with a non-zero exit code:
    L1 falling; trained_fidelity for FIDELITY_ITERS steps at its
    documented seed, its box head alive at init and after training, its
    export through verify_pretrained --device cuda against the CPU engine's
-   goldens at >= 40 dB, and its box-head probe refusing seed 0 on the
-   card; loader_bench at the f32 proof's steady rate.  K1 launched exactly
-   once per step and per final check_model, probe and gate forward, the
-   threefry draw exactly once per step and per final check_model batch and
-   triptych, and no other kernel.  Their
+   goldens at >= 40 dB, and its box-head probe refusing seed 1 (y1 dead
+   under the JAX init) on the card; loader_bench at the f32 proof's steady
+   rate.  K1 launched exactly once per step and per final check_model,
+   probe and gate forward, the threefry draw exactly once per step and per
+   final check_model batch and triptych, and no other kernel (besides the
+   inits' draws).  Their
    output goes to build/chip_smoke/proof_*.log;
 16. measure: every measurement tool of sg2im_tpu_torch.tools once at
    reduced counts (MEASURE_RUNS): bw_probe's stream rates; roofline's
@@ -206,12 +221,18 @@ their processes), the world-1 NCCL steps and CLI run, each mesh engine's
 generate, each proof tool's run, each measurement tool's run, each bench
 run) runs with the kernels' launch counts set to 0 just before it and read
 just after; the conv wrappers' padded input copies, counted the same way,
-must stay 0 on every path and in every timed batch-128 forward.
+must stay 0 on every path and in every timed batch-128 forward.  Every
+Trainer.init_state on the card launches exactly Trainer.init_launches()
+(the key's split and one threefry draw a drawn leaf); a path's checks of
+its per-step counts leave those launches out, its totals keep them.
 A line gives each phase's seconds.  The line before the last is a JSON
 summary of every ported kernel with its launches on those paths, its time
 beside its plain version's, its bound (the larger of its bytes over the
 card's memory rate and its operations over the peak rate of their type)
-and one PyTorch call of the same function where there is one.  The boxes
+and one PyTorch call of the same function where there is one; the split's
+entry adds its device time and the card's least launch by its route
+(launch_floor_ms, on events; launch_floor_device_ms), since no launch
+comes near its hash's bound.  The boxes
 entry stands there twice, each with its own bound: layout_compose_boxes
 with all its launches, timed with an f32 output, and
 layout_compose_boxes_bf16 with its launches of a bf16 output, timed so;
@@ -226,6 +247,7 @@ import dataclasses
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -787,6 +809,20 @@ def relayout_entry(entry):
     return rl.depth_to_space, rl.depth_to_space_ref
 
 
+def relayout_library(entry, x):
+    """One PyTorch call of K3's function on the channels_last ``x``: its
+    NHWC view split into 2 x 2 blocks, permuted and reshaped, one copy (the
+    s2d packed[n, i, j, (2a + b) C + c] = fine[n, 2i + a, 2j + b, c], or
+    its inverse); -> a function giving the NHWC result."""
+    N, C, H, W = x.shape
+    nhwc = x.permute(0, 2, 3, 1)
+    if entry == "s2d":
+        return lambda: nhwc.view(N, H // 2, 2, W // 2, 2, C).permute(
+            0, 1, 3, 2, 4, 5).reshape(N, H // 2, W // 2, 4 * C)
+    return lambda: nhwc.view(N, H, W, 2, 2, C // 4).permute(
+        0, 1, 3, 2, 4, 5).reshape(N, 2 * H, 2 * W, C // 4)
+
+
 def check_relayout_case(torch, name, entry, shape, dtype, offset, seed=0):
     """One kernel entry against its plain version: bit-equal, and the
     output channels_last.  Returns the max abs error (0.0)."""
@@ -810,7 +846,7 @@ def phase_relayout(torch, card):
     copy_ of the same bytes."""
     errs = {"s2d": 0.0, "d2s": 0.0}
     times = {f"{e}{k}": 0.0 for e in ("s2d", "d2s")
-             for k in ("", "_plain", "_copy")}
+             for k in ("", "_plain", "_copy", "_library")}
     with torch.inference_mode():
         cases = {**RELAYOUT_PATH, **RELAYOUT_RAGGED}
         for i, (name, case) in enumerate(cases.items()):
@@ -823,9 +859,14 @@ def phase_relayout(torch, card):
             x = relayout_input(torch, shape, dtype, seed=3)
             fn, plain = relayout_entry(entry)
             dst = torch.empty_like(x)
+            library = relayout_library(entry, x)
+            if not torch.equal(library().permute(0, 3, 1, 2), fn(x)):
+                fail(f"relayout {name}: the permuted copy differs from the "
+                     f"kernel")
             ms = {"": time_ms(lambda: fn(x)),
                   "_plain": time_ms(lambda: plain(x)),
-                  "_copy": time_ms(lambda: dst.copy_(x))}
+                  "_copy": time_ms(lambda: dst.copy_(x)),
+                  "_library": time_ms(library)}
             for k, v in ms.items():
                 times[entry + k] += v
             gb = 2 * x.numel() * x.element_size() / 1e9  # read + write
@@ -833,12 +874,15 @@ def phase_relayout(torch, card):
                   f"({gb / ms[''] * 1e3:.0f} GB/s) vs plain "
                   f"{ms['_plain']:.4f} ({gb / ms['_plain'] * 1e3:.0f} GB/s) "
                   f"vs copy_ {ms['_copy']:.4f} "
-                  f"({gb / ms['_copy'] * 1e3:.0f} GB/s); on {card}")
+                  f"({gb / ms['_copy'] * 1e3:.0f} GB/s) vs the permuted copy "
+                  f"{ms['_library']:.4f} "
+                  f"({gb / ms['_library'] * 1e3:.0f} GB/s); on {card}")
             del x, dst
     for entry in ("s2d", "d2s"):
         print(f"[relayout] b128 sum of the three {entry} shapes (ms): kernel "
               f"{times[entry]:.4f} vs plain {times[entry + '_plain']:.4f} vs "
-              f"copy_ {times[entry + '_copy']:.4f}")
+              f"copy_ {times[entry + '_copy']:.4f} vs the permuted copy "
+              f"{times[entry + '_library']:.4f}")
     return errs, times
 
 
@@ -885,6 +929,31 @@ THREEFRY_TIMED_MORE = {"train step NCHW f32": ((32, 32, 64, 64), 1, False),
                                                      True)}
 THREEFRY_BAR = 1e-6  # normals, kernel against the plain version
 THREEFRY_SOURCE = "sg2im_tpu_torch/csrc/threefry.cu"
+
+
+def _kernel_scale(fan_in: int) -> float:
+    """The init's uniform kernel factor sqrt(3 var), var = (1/3) / fan_in,
+    in float32 (nn/init.py)."""
+    return float(np.sqrt(np.float32(3) * np.float32((1.0 / 3.0) / fan_in)))
+
+
+# name: (seed, n, (minval, maxval), scale, offset).  The init's draws:
+# its bias bounds 1 / sqrt(fan_in) for fans 9 x 16 ... 9 x 1024 on sizes
+# that are no multiple of the 4 values a thread, the [-1, 1) kernel draw
+# times sqrt(3 var), counters across 2^32 (2^32 - 3: inside a thread's
+# run); and the unit interval.
+UNIFORM_CASES = {
+    **{f"bias fan_in 9x{c}, {c + 1} values": (
+        c, c + 1, (-1.0 / (9 * c) ** 0.5, 1.0 / (9 * c) ** 0.5), None, 0)
+       for c in (16, 64, 256, 1024)},
+    "kernel [-1, 1) x sqrt(3 var), fan_in 9x160, 3x3x160x7": (
+        21, 9 * 160 * 7, (-1.0, 1.0), _kernel_scale(9 * 160), 0),
+    "kernel, offset 2^32-3, 4099 values": (
+        22, 4099, (-1.0, 1.0), _kernel_scale(128), 2 ** 32 - 3),
+    "bias, offset 2^32-700, 1031 values": (
+        23, 1031, (-0.25, 0.25), None, 2 ** 32 - 700),
+    "unit interval, 5 values": (24, 5, (0.0, 1.0), None, 0),
+}
 
 
 def threefry_sass_mix(mode: int) -> dict:
@@ -943,6 +1012,23 @@ def check_threefry_case(torch, name, seed, shape, f, offset, cl):
           f"{errs['f32']:.3e} ({100 * eq['f32']:.3f}% bit-equal), bf16 "
           f"{errs['bf16']:.3e} ({100 * eq['bf16']:.3f}% bit-equal)")
     return errs
+
+
+def check_uniform_case(torch, name, seed, n, bounds, scale, offset):
+    """The uniform entry against its plain version (ops.prng.uniform times
+    the scale), bit for bit -> the max abs error (0.0)."""
+    from sg2im_tpu_torch.ops import prng
+    from sg2im_tpu_torch.ops import prng_kernel as pk
+
+    key = prng.prng_key(seed)
+    got = pk.threefry_uniform(key, n, *bounds, scale, offset, device="cuda")
+    want = pk.threefry_uniform(key, n, *bounds, scale, offset, device="cpu")
+    if got.dtype != torch.float32 or got.shape != (n,):
+        fail(f"uniform {name}: {tuple(got.shape)} {got.dtype}")
+    if not torch.equal(got.cpu(), want):
+        fail(f"uniform {name}: differs from the plain version at "
+             f"{int((got.cpu() != want).sum())} of {want.numel()} elements")
+    return (got.cpu() - want).abs().max().item()
 
 
 def check_threefry_path_case(torch, name, seed, shape, dtype, cl):
@@ -1085,10 +1171,69 @@ def phase_threefry(torch, card):
                                  iters=50, warmup=5)
         times["split_plain"] = time_ms(lambda: prng.split(step_key),
                                        iters=50, warmup=5)
+        # The card's least launch by the same route, and both on the
+        # device (torch.profiler): the floor of the split's bound.
+        times["empty"] = time_ms(pk.empty_launch, iters=50, warmup=5)
+        table = kernel_table(lambda: (pk.threefry_split(step_key),
+                                      pk.empty_launch()), "cuda", iters=50,
+                             top=None)
+        device_ms = {}
+        for what, pattern in (("split", "threefry_split_kernel"),
+                              ("empty", "empty_kernel")):
+            rows = [r for r in table["top"] if pattern in r["name"]]
+            if len(rows) != 1 or rows[0]["count"] != 1:
+                fail(f"the profiler's table of split and empty launches "
+                     f"has {rows} for {pattern}")
+            device_ms[what] = times[f"{what}_device"] = rows[0]["ms"]
         print(f"[threefry] split: bit-equal to the plain split (5 seeds, num "
               f"1, 2, 5, 300, the key on the card and by value); the train "
-              f"step's split(key): kernel {times['split']:.4f} ms a call, "
+              f"step's split(key): kernel {times['split']:.4f} ms a call on "
+              f"events, {device_ms['split']:.5f} on the device; an empty "
+              f"kernel by the same route {times['empty']:.4f} on events, "
+              f"{device_ms['empty']:.5f} on the device (the launch floor); "
               f"plain torch {times['split_plain']:.4f} ms; on {card}")
+
+        # The uniform entry: bit-equal on UNIFORM_CASES, then timed at the
+        # vg128 generator's largest leaf (a flat draw, as the init makes).
+        errs["uniform"] = max(check_uniform_case(torch, name, *case)
+                              for name, case in UNIFORM_CASES.items())
+        print(f"[threefry] uniform: {len(UNIFORM_CASES)} cases bit-equal to "
+              f"the plain version (uniform times the scale)")
+        from sg2im_tpu_torch.models import Sg2ImGenerator
+        from sg2im_tpu_torch.nn.init import init_plan
+
+        vocab, kwargs = vg128_config()
+        largest = max(init_plan(Sg2ImGenerator(vocab, **kwargs), "g"),
+                      key=lambda leaf: int(np.prod(leaf.shape)))
+        n = int(np.prod(largest.shape))
+        times["uniform_values"] = n
+        flat = (1, n, 1, 1)
+        scale = _kernel_scale(n // largest.shape[-1])
+        times["uniform"] = time_ms(lambda: pk.threefry_uniform(
+            key, n, -1.0, 1.0, scale, device="cuda"))
+        times["uniform_plain"] = time_ms(lambda: prng.uniform(
+            key, (n,), torch.float32, -1.0, 1.0, device="cuda") * scale,
+            iters=3, warmup=1)
+        times["uniform_normal"] = time_ms(lambda: pk.threefry_normal(
+            key, flat, device="cuda", memory_format=cl, scale=scale))
+        # A draw of this size is short against the host's issue of its
+        # launch: its device time too.
+        table = kernel_table(lambda: pk.threefry_uniform(
+            key, n, -1.0, 1.0, scale, device="cuda"),
+            "cuda", iters=20, top=None)
+        rows = [r for r in table["top"] if "threefry_normal_kernel" in
+                r["name"]]
+        if len(rows) != 1 or rows[0]["count"] != 1:
+            fail(f"the profiler's table of uniform draws has {rows}")
+        times["uniform_device"] = rows[0]["ms"]
+        got = pk.threefry_uniform(key, n, -1.0, 1.0, scale, device="cuda")
+        want = prng.uniform(key, (n,), torch.float32, -1.0, 1.0,
+                            device="cuda") * torch.tensor(scale,
+                                                          device="cuda")
+        if not torch.equal(got, want):
+            fail("uniform at the largest leaf differs from the plain version")
+        del got, want
+        torch.cuda.empty_cache()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
          "nounits"], capture_output=True, text=True, timeout=60)
@@ -1098,6 +1243,19 @@ def phase_threefry(torch, card):
     # split(key): two keys of two words written, each one hash.
     times["split_bound"] = threefry_bounds(2, 16, THREEFRY_OPS["split"],
                                            sms, clock_hz)
+    n = times["uniform_values"]
+    bound, by = times["uniform_bound"] = threefry_bounds(
+        n, 4 * n, THREEFRY_OPS["uniform"], sms, clock_hz)
+    print(f"[threefry] uniform at the vg128 generator's largest leaf ({n} "
+          f"values, {largest.name}): {times['uniform']:.4f} ms on events, "
+          f"{times['uniform_device']:.4f} on the device, "
+          f"{100 * bound / times['uniform']:.1f}% and "
+          f"{100 * bound / times['uniform_device']:.1f}% of its "
+          f"{bound:.4f} ms {by} "
+          f"bound ({THREEFRY_OPS['uniform'].instructions:g} instructions a "
+          f"value); the scaled normal of the same size "
+          f"{times['uniform_normal']:.4f} ms; plain "
+          f"{times['uniform_plain']:.3f} ms; on {card}")
     for tag, mode, elem in (("f32", 1, 4), ("bf16", 2, 2)):
         least = THREEFRY_OPS[tag]
         times[f"{tag}_bound"] = threefry_bounds(values, values * elem, least,
@@ -1139,6 +1297,60 @@ def phase_threefry(torch, card):
     return errs, times
 
 
+def phase_init(torch, card, launches):
+    """The JAX package's parameter init of the vg128 generator on the card;
+    see the module docstring."""
+    from sg2im_tpu_torch.models import Sg2ImGenerator
+    from sg2im_tpu_torch.nn.init import init_draws, init_plan, init_state_dict
+    from sg2im_tpu_torch.ops.prng import prng_key
+
+    vocab, kwargs = vg128_config()
+    model = Sg2ImGenerator(vocab, **kwargs)
+    key = prng_key(0)
+    init_state_dict(model, "g", key, "cuda")  # warm-up
+    ms = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = init_state_dict(model, "g", key, "cuda")
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        path = read_launches()
+        if i == 0:
+            add_launches(launches, path)
+        drawn = {k: v for k, v in path.items() if v}
+        want = {k: v for k, v in init_draws(model, "g").items() if v}
+        if drawn != want:
+            fail(f"the vg128 init on the card launched {drawn}, not {want}")
+    t0 = time.perf_counter()
+    plain = init_state_dict(model, "g", key)
+    cpu_s = time.perf_counter() - t0
+    worst = {"uniform": 0.0, "normal": 0.0, "ones": 0.0, "zeros": 0.0}
+    plan = init_plan(model, "g")
+    if set(got) != set(plain) or set(got) != {leaf.name for leaf in plan}:
+        fail("the card's and the CPU's init give other names")
+    for leaf in plan:
+        g, w = got[leaf.name].cpu(), plain[leaf.name]
+        err = (g - w).abs().max().item()
+        bar = THREEFRY_BAR * leaf.scale if leaf.draw == "normal" else 0.0
+        if g.shape != w.shape or not err <= bar:
+            fail(f"init {leaf.name} ({leaf.draw}): max_abs_err {err:.3e} "
+                 f"over {bar:.3e}")
+        worst[leaf.draw] = max(worst[leaf.draw],
+                               err / (leaf.scale if bar else 1.0))
+    values = sum(int(np.prod(leaf.shape)) for leaf in plan
+                 if leaf.draw in ("uniform", "normal"))
+    print(f"[init] vg128 generator, PRNGKey(0): {len(plan)} leaves, "
+          f"{sum(want.values())} drawn ({values} values; {want}) on the card "
+          f"in {statistics.median(ms):.2f} ms (host clock to a synchronize, "
+          f"median of {[round(v, 2) for v in ms]}) against {cpu_s:.2f} s of "
+          f"the plain init on the host; uniform leaves, ones and zeros "
+          f"bit-equal, normal leaves within {worst['normal']:.3e} of their "
+          f"scale; on {card}")
+    return statistics.median(ms), cpu_s
+
+
 def kernel_wrappers():
     """{kernels-line name: wrapper}; each wrapper counts its launches."""
     from sg2im_tpu_torch.ops import conv_kernel as ck
@@ -1153,6 +1365,7 @@ def kernel_wrappers():
             "relayout_s2d": rl.space_to_depth,
             "relayout_d2s": rl.depth_to_space,
             "threefry_normal": pk.threefry_normal,
+            "threefry_uniform": pk.threefry_uniform,
             "threefry_split": pk.threefry_split}
 
 
@@ -1174,10 +1387,16 @@ def cli_draws(steps, checkpoints, prints, sweeps):
             + prints)
 
 
+# The launches of the Trainer.init_state calls on the card since the last
+# reset_launches (watch_inits).
+INIT_LAUNCHES: dict = {}
+
+
 def reset_launches():
     """Every launch count, and the conv wrappers' padded copies, to 0."""
     from sg2im_tpu_torch.ops import layout_kernel as lk
 
+    INIT_LAUNCHES.clear()
     lk.layout_compose.launches_bf16 = 0
     for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
@@ -1201,6 +1420,38 @@ def read_launches() -> dict:
 
     return {**{name: w.launches for name, w in kernel_wrappers().items()},
             "layout_compose_boxes_bf16": lk.layout_compose.launches_bf16}
+
+
+def watch_inits():
+    """Wrap Trainer.init_state: each call on the card must launch exactly
+    its Trainer.init_launches() (the key's split and one threefry draw a
+    drawn leaf: every init draw a kernel launch), read from the wrappers'
+    counts around it, and those launches are set apart in INIT_LAUNCHES
+    for the paths whose checks count launches per step."""
+    from sg2im_tpu_torch.train.trainer import Trainer
+
+    init_state = Trainer.init_state
+
+    def watched(self, *args, **kwargs):
+        before = read_launches()
+        state = init_state(self, *args, **kwargs)
+        after = read_launches()
+        got = {k: after[k] - before[k] for k in after
+               if after[k] != before[k]}
+        if self.device.type == "cuda":
+            want = {k: v for k, v in self.init_launches().items() if v}
+            if got != want:
+                fail(f"Trainer.init_state on the card launched {got}, not "
+                     f"{want}")
+        add_launches(INIT_LAUNCHES, got)
+        return state
+
+    Trainer.init_state = watched
+
+
+def without_init(path: dict) -> dict:
+    """A path's launches less those of the Trainer inits in it."""
+    return {k: v - INIT_LAUNCHES.get(k, 0) for k, v in path.items()}
 
 
 def add_launches(total: dict, path: dict) -> None:
@@ -1281,6 +1532,18 @@ def phase_checkpoint(torch, launches):
              f"{p_turbo:.2f} dB")
 
 
+def vg128_state(torch, seed=0) -> dict:
+    """The vg128 generator's weights that the JAX package's init gives
+    PRNGKey(seed) (bench.py's model at seed 0), drawn on the card."""
+    from sg2im_tpu_torch.models import Sg2ImGenerator
+    from sg2im_tpu_torch.nn.init import init_state_dict
+    from sg2im_tpu_torch.ops.prng import prng_key
+
+    vocab, kwargs = vg128_config()
+    return init_state_dict(Sg2ImGenerator(vocab, **kwargs), "g",
+                           prng_key(seed), "cuda")
+
+
 def random_graphs(vocab, n, rng, n_objs=10, n_rels=21):
     """Scene graphs of n_objs objects and n_rels relationships: with the
     per-object in-image triples that makes O = 11 -> 16 and T = 31 -> 32
@@ -1300,12 +1563,9 @@ def phase_vg128(torch, card, launches):
     """-> {mode: b128 forward img/s}."""
     from sg2im_tpu_torch.data import encode_scene_graphs
     from sg2im_tpu_torch.inference import InferenceEngine, full_fp32
-    from sg2im_tpu_torch.models import Sg2ImGenerator
 
     vocab, kwargs = vg128_config()
-    model = Sg2ImGenerator(vocab, **kwargs)
-    model.reset_parameters(torch.Generator().manual_seed(0))
-    state = model.state_dict()
+    state = vg128_state(torch)
     bf16 = dict(compute_dtype=torch.bfloat16, crn_mode="split")
     engines = {
         "f32": InferenceEngine(vocab, kwargs, state, device="cuda"),
@@ -1467,12 +1727,9 @@ def phase_seeded(torch, card, launches):
     generate, which must name the threefry kernel and K1
     (SEEDED_PROFILED)."""
     from sg2im_tpu_torch.inference import InferenceEngine
-    from sg2im_tpu_torch.models import Sg2ImGenerator
 
     vocab, kwargs = vg128_config()
-    model = Sg2ImGenerator(vocab, **kwargs)
-    model.reset_parameters(torch.Generator().manual_seed(0))
-    state = model.state_dict()
+    state = vg128_state(torch)
     card_engine = InferenceEngine(vocab, kwargs, state, device="cuda")
     cpu = InferenceEngine(vocab, kwargs, state, device="cpu")
     graphs = random_graphs(vocab, 128, np.random.RandomState(SEEDED_SEED))
@@ -1543,14 +1800,12 @@ TURBO_COALESCED_DB = 55.0
 
 
 def write_vg128_checkpoint(torch, path, seed=0):
-    """The vg128 generator with random weights from ``seed`` (the weights
-    of phase_vg128) as a reference-layout .pt; returns its vocab."""
-    from sg2im_tpu_torch.models import Sg2ImGenerator
-
+    """The vg128 generator with the JAX init's weights of PRNGKey(seed)
+    (the weights of phase_vg128) as a reference-layout .pt; returns its
+    vocab."""
     vocab, kwargs = vg128_config()
-    model = Sg2ImGenerator(vocab, **kwargs)
-    model.reset_parameters(torch.Generator().manual_seed(seed))
-    torch.save({"model_state": model.state_dict(),
+    state = {k: v.cpu() for k, v in vg128_state(torch, seed).items()}
+    torch.save({"model_state": state,
                 "model_kwargs": dict(kwargs, vocab=vocab)}, path)
     return vocab
 
@@ -2659,6 +2914,7 @@ def phase_train_cli(torch, card, launches, in_memory, work):
             path = read_launches()
             check_no_padded_copies(f"the train CLI ({mode})")
             add_launches(launches, path)
+            path = without_init(path)
             k1 = path["layout_compose_boxes"]
             others = {k: v for k, v in path.items()
                       if k not in TRAIN_COUNTS and v}
@@ -3017,9 +3273,7 @@ def phase_mesh(torch, card, launches):
     # algorithms by batch size.  Then two model columns (tensor parallel)
     # against the replicated mesh.
     vocab, kwargs = vg128_config()
-    model = Sg2ImGenerator(vocab, **kwargs)
-    model.reset_parameters(torch.Generator().manual_seed(0))
-    state = model.state_dict()
+    state = vg128_state(torch)
     graphs = random_graphs(vocab, MESH_BATCH, np.random.RandomState(3))
     half = MESH_BATCH // 2
     cuda0 = ["cuda:0", "cuda:0"]
@@ -3339,6 +3593,7 @@ def phase_jax_checkpoint(torch, card, launches, coco_flags, work, sweeps):
         path = read_launches()
         check_no_padded_copies("the training CLI resuming state.msgpack")
         add_launches(launches, path)
+        path = without_init(path)
         others = {k: v for k, v in path.items()
                   if k not in TRAIN_COUNTS and v}
         k1.append(path["layout_compose_boxes"])
@@ -3502,6 +3757,7 @@ def phase_proofs(torch, card, launches, work):
         rc, wall, path, _ = _tool(train_proof.main, argv,
                                   os.path.join(logs, f"proof_{tag}.log"))
         add_launches(launches, path)
+        path = without_init(path)
         check_no_padded_copies(f"train_proof {name}")
         with open(os.path.join(out, "train_proof.json")) as f:
             s = json.load(f)
@@ -3535,6 +3791,7 @@ def phase_proofs(torch, card, launches, work):
         "--iters", str(FIDELITY_ITERS), "--workers", "8", "--device", "cuda",
         "--out", out], os.path.join(logs, "proof_trained_fidelity.log"))
     add_launches(launches, path)
+    path = without_init(path)
     result = json.loads(last)
     k1 = path["layout_compose_boxes"]
     l1 = [v for _, v in result["l1"]]
@@ -3560,15 +3817,16 @@ def phase_proofs(torch, card, launches, work):
         fail(f"trained_fidelity exited {rc}: {result['psnr_u8_db_trained']}"
              f" dB; box head alive {result['box_head_alive']}; "
              f"{result['cause']}")
-    # The seed contract on the card: the probe refuses seed 0's init and
-    # passes the documented seed's, on the first batch of the proof data.
+    # The seed contract on the card: the probe refuses seed 1's init (y1
+    # dead) and passes the documented seed's, on the first batch of the
+    # proof data.
     shares = {seed: trained_fidelity.box_head_probe(trained_fidelity.
               train_flags(paths, 1, 32, 4, seed, "cuda"))
-              for seed in (0, trained_fidelity.SEED)}
+              for seed in (1, trained_fidelity.SEED)}
     print(f"[proofs] trained_fidelity's box-head probe on the card, the "
           f"share of objects with x0, y0, x1, y1 non-zero at init: {shares}")
-    if min(shares[0]) != 0.0 or min(shares[trained_fidelity.SEED]) == 0.0:
-        fail(f"the box-head probe did not refuse seed 0 and pass seed "
+    if min(shares[1]) != 0.0 or min(shares[trained_fidelity.SEED]) == 0.0:
+        fail(f"the box-head probe did not refuse seed 1 and pass seed "
              f"{trained_fidelity.SEED}: {shares}")
     # Its probe and gate forwards take zero noise: no threefry launch.
     tf = path["threefry_normal"]
@@ -3821,6 +4079,7 @@ def main() -> int:
 
     phase_build()
     done("build")
+    watch_inits()
     launches = {}
     errs, times = phase_kernels(torch, card)
     done("kernels")
@@ -3830,6 +4089,8 @@ def main() -> int:
     done("relayout")
     tf_errs, tf_times = phase_threefry(torch, card)
     done("threefry")
+    phase_init(torch, card, launches)
+    done("init")
     phase_checkpoint(torch, launches)
     done("checkpoint")
     vg128_img_s = phase_vg128(torch, card, launches)
@@ -3893,16 +4154,23 @@ def main() -> int:
          conv_times["bounds"]["s8"], None),
         ("relayout_s2d", RELAYOUT_SOURCE, f"{relayout_src}:77",
          rl_errs["s2d"], rl_times["s2d"], rl_times["s2d_plain"],
-         rl_bounds["s2d"], None),
+         rl_bounds["s2d"], rl_times["s2d_library"]),
         ("relayout_d2s", RELAYOUT_SOURCE, f"{relayout_src}:91",
          rl_errs["d2s"], rl_times["d2s"], rl_times["d2s_plain"],
-         rl_bounds["d2s"], None),
+         rl_bounds["d2s"], rl_times["d2s_library"]),
         # No TPU kernel: the JAX package's jax.random.normal, which XLA
         # expands on the TPU.  torch.randn is another function (printed by
         # phase_threefry as a reference), so no library call.
         ("threefry_normal", THREEFRY_SOURCE, "sg2im_tpu/inference.py:301",
-         max(tf_errs.values()), tf_times["f32"], tf_times["f32_plain"],
-         tf_times["f32_bound"], None),
+         max(v for k, v in tf_errs.items() if k != "uniform"),
+         tf_times["f32"], tf_times["f32_plain"], tf_times["f32_bound"],
+         None),
+        # The uniform entry: the parameter init's jax.random.uniform
+        # (sg2im_tpu/nn/layers.py:37-47 through flax's variance_scaling),
+        # which XLA expands on the TPU; timed at vg128's largest leaf.
+        ("threefry_uniform", THREEFRY_SOURCE, "sg2im_tpu/nn/layers.py:46",
+         tf_errs["uniform"], tf_times["uniform"], tf_times["uniform_plain"],
+         tf_times["uniform_bound"], None),
         # jax.random.split of the train step's key (sg2im_tpu/train/
         # step.py:274), which XLA expands on the TPU; checked bit for bit.
         ("threefry_split", THREEFRY_SOURCE, "sg2im_tpu/train/step.py:274",
@@ -3916,6 +4184,13 @@ def main() -> int:
          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library}
         for name, source, replaces, err, ms, plain_ms, bound, library
         in rows]}
+    # The split's bound, its hash, is far below any launch: beside it its
+    # device time and the card's least launch by the same route (an empty
+    # kernel), on events and on the device.
+    summary["kernels"][-1].update(
+        device_ms=tf_times["split_device"],
+        launch_floor_ms=tf_times["empty"],
+        launch_floor_device_ms=tf_times["empty_device"])
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -67,27 +67,35 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def _float32(arr) -> torch.Tensor:
+    """A float32 tensor of its own: a torch tensor stays on its device."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().float()
+    return torch.from_numpy(np.array(np.asarray(arr, np.float32)))
+
+
 def state_dict_from_jax(variables) -> dict[str, torch.Tensor]:
     """JAX variables {'params', 'batch_stats'} of the generator or of a
-    discriminator -> the port's state dict (float32 CPU tensors).  Dense
-    kernels (in, out) become Linear weights (out, in); conv kernels HWIO
-    become OIHW."""
+    discriminator -> the port's state dict (float32 contiguous tensors: on
+    the CPU from numpy or JAX arrays, where they lie from torch tensors).
+    Dense kernels (in, out) become Linear weights (out, in); conv kernels
+    HWIO become OIHW."""
     state = {}
     for path, arr in _leaves(variables.get("params", {})):
-        arr = np.asarray(arr, np.float32)
+        arr = _float32(arr)
         base, leaf = _torch_prefix(path[:-1]), path[-1]
         if leaf == "kernel":
-            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            arr = arr.permute(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         elif leaf not in ("embedding", "scale", "bias"):
             raise ValueError(f"unknown parameter leaf {leaf!r} at {path}")
         name = "bias" if leaf == "bias" else "weight"
-        state[f"{base}.{name}"] = torch.from_numpy(np.array(arr))
+        state[f"{base}.{name}"] = arr.contiguous()
     stat_names = {"mean": "running_mean", "var": "running_var"}
     for path, arr in _leaves(variables.get("batch_stats", {})):
         if path[-1] not in stat_names:
             raise ValueError(f"unknown statistics leaf {path[-1]!r} at {path}")
         state[f"{_torch_prefix(path[:-1])}.{stat_names[path[-1]]}"] = \
-            torch.from_numpy(np.array(arr, np.float32))
+            _float32(arr).contiguous()
     return state
 
 
@@ -215,43 +223,57 @@ def _put(tree, path, value):
     tree[path[-1]] = value
 
 
-def variables_to_jax(state_dict, model: str, context=None) -> dict:
-    """Upstream-named tensors -> flax ``{'params', 'batch_stats'}`` of
-    float32 numpy arrays (``state_dict_from_jax``'s inverse; the JAX
-    package's ``convert_state_dict``): Linear weights (out, in) become
-    kernels (in, out), conv weights OIHW become HWIO, a BatchNorm's weight
-    and bias go under its ``bn/scale`` and ``bn/bias`` and its running
-    statistics into ``batch_stats``.  ``model``: 'g', 'd_obj' or 'd_img';
-    ``context`` (default ``state_dict``), the model's whole state dict,
-    tells a BatchNorm's weight by its running mean where ``state_dict``
-    holds parameters alone (Adam's moments)."""
+def jax_leaves(state_dict, model: str, context=None):
+    """Where each upstream-named tensor goes in the flax variables: yields
+    (name, collection, flax path, axes) for every tensor the JAX model
+    holds, ``collection`` 'params' or 'batch_stats', ``axes`` the
+    permutation that takes the tensor into the JAX layout (Linear (out, in)
+    -> Dense (in, out), OIHW -> HWIO) or None.  A BatchNorm's weight and
+    bias go under its ``bn/scale`` and ``bn/bias``, its running statistics
+    into ``batch_stats``.  ``model``: 'g', 'd_obj' or 'd_img'; ``context``
+    (default ``state_dict``), the model's whole state dict, tells a
+    BatchNorm's weight by its running mean where ``state_dict`` holds
+    parameters alone (Adam's moments).  Only the names and shapes are
+    read."""
     path_of = _JAX_PATHS[model]
     context = state_dict if context is None else context
-    params: dict = {}
-    stats: dict = {}
     for key, t in state_dict.items():
         *parts, leaf = key.split(".")
         path = path_of(parts)
         if path is None or leaf == "num_batches_tracked":
             continue
-        arr = t.detach().cpu().numpy().astype(np.float32, copy=False)
         if len(path) == 1 and path[0] in ("obj_embeddings",
                                           "pred_embeddings"):
-            _put(params, path + ["embedding"], arr)
+            yield key, "params", path + ["embedding"], None
         elif leaf in ("running_mean", "running_var"):
-            _put(stats, path + ["bn", leaf[len("running_"):]], arr)
+            yield key, "batch_stats", path + ["bn", leaf[len("running_"):]], \
+                None
         elif f"{'.'.join(parts)}.running_mean" in context:
-            _put(params, path + ["bn", "scale" if leaf == "weight"
-                                 else "bias"], arr)
+            yield key, "params", path + ["bn", "scale" if leaf == "weight"
+                                         else "bias"], None
         elif leaf == "weight":
-            _put(params, path + ["kernel"], np.ascontiguousarray(
-                arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T))
+            yield key, "params", path + ["kernel"], \
+                (2, 3, 1, 0) if t.ndim == 4 else (1, 0)
         elif leaf == "bias":
-            _put(params, path + ["bias"], arr)
+            yield key, "params", path + ["bias"], None
         else:
             raise ValueError(f"unknown leaf {leaf!r} of {key}")
-    return {"params": params, "batch_stats": stats} if stats \
-        else {"params": params}
+
+
+def variables_to_jax(state_dict, model: str, context=None) -> dict:
+    """Upstream-named tensors -> flax ``{'params', 'batch_stats'}`` of
+    float32 numpy arrays (``state_dict_from_jax``'s inverse; the JAX
+    package's ``convert_state_dict``), each tensor where
+    :func:`jax_leaves` puts it."""
+    trees: dict = {"params": {}}
+    for key, collection, path, axes in jax_leaves(state_dict, model,
+                                                  context):
+        arr = state_dict[key].detach().cpu().numpy().astype(np.float32,
+                                                            copy=False)
+        if axes is not None:
+            arr = np.ascontiguousarray(arr.transpose(axes))
+        _put(trees.setdefault(collection, {}), path, arr)
+    return trees
 
 
 def jax_tree_from_train_state(state) -> dict:

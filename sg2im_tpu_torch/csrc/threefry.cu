@@ -1,7 +1,9 @@
-// Threefry-2x32 normals for Hopper (sm_90a): the JAX package's layout noise,
-// jax.random.normal(key, (N, H / f, W / f, C)) with partitionable threefry,
-// drawn on the card and nearest-upsampled by f into the (N, C, H, W) noise
-// the generator takes (NCHW or channels_last).
+// Threefry-2x32 normals and uniforms for Hopper (sm_90a): the JAX package's
+// layout noise, jax.random.normal(key, (N, H / f, W / f, C)) with
+// partitionable threefry, drawn on the card and nearest-upsampled by f into
+// the (N, C, H, W) noise the generator takes (NCHW or channels_last); and
+// the draws of its parameter init (flax's initializers: a uniform or a
+// normal times a float32 scale, in the parameter's JAX shape).
 //
 // Element (n, c, y, x) of the output is the JAX draw's NHWC element
 // (n, y / f, x / f, c), whose counter is its flat index in the (N, H / f,
@@ -14,7 +16,17 @@
 //   bfloat16: 8 bits, ((bits & 0xFF) >> 1) | 0x3F80 as bfloat16, the same
 //             steps rounded to bfloat16 where JAX's bfloat16 arithmetic
 //             rounds; erf_inv runs in float32 and is rounded;
-//   bits:     the 32 bits themselves (int32), for checking the hash.
+//   bits:     the 32 bits themselves (int32), for checking the hash;
+//   uniform:  jax.random.uniform(key, shape, float32, minval, maxval):
+//             unit = ((bits >> 9) | 0x3F800000) as float - 1, then
+//             max(minval, unit * (maxval - minval) + minval) with the
+//             product and the sum as one fused multiply-add (one rounding,
+//             as XLA emits it; ops/prng.uniform says why), then times the
+//             initializer's scale, rounded on its own (flax's init is eager:
+//             variance_scaling's `uniform(...) * sqrt(3 var)`).
+// The float32 normal is likewise multiplied by a scale, rounded on its own
+// (`normal(...) * sqrt(var)`); the layout noise passes 1, which changes no
+// value.  The uniform has no bfloat16 output: parameters are float32.
 // erf_inv is XLA's float32 polynomial (Giles), with its Horner steps as
 // fused multiply-adds, as XLA emits them; every other float operation is
 // an explicit IEEE intrinsic, so that nvcc contracts nothing the plain
@@ -64,11 +76,20 @@
 // value, or read from device memory for a key split on the card, so that no
 // launch waits for the host; the 64-bit offset by value.
 //
+// The uniform entry, sg2im_threefry_uniform, is the flat walk alone (the
+// float32 output's V, the normal's): the parameter init draws each leaf
+// flat in its JAX shape's row-major order, one launch a leaf.  Its work a
+// value is the hash and about four float operations, so it is bound by
+// the hash's issue as the normal is, with less to add.
+//
 // A second entry, sg2im_threefry_split, is jax.random.split on the card:
 // one thread a key, so that the train step splits its key on the card in
 // one launch (in tensor ops the hash is about 180 launches of two
 // elements, issue time a host-bound step pays).  Its time is the host's
-// issue of one launch; no kernel design moves it.
+// issue of one launch; no kernel design moves it.  sg2im_threefry_empty
+// launches an empty kernel by the same route (ctypes, one <<<1, 1>>>
+// launch on the caller's stream): the card's least launch, printed
+// beside the split's time.
 //
 // Plain C interface (loaded with ctypes): each entry returns
 // cudaGetLastError() after its launch, on the caller's stream.
@@ -83,7 +104,7 @@ namespace {
 constexpr int kThreads = 256;  // threads a block (ops/prng_kernel.THREADS)
 constexpr int kMinBlocks = 4;  // resident blocks an SM: <= 64 registers
 
-enum Mode { kBits = 0, kNormalF32 = 1, kNormalBF16 = 2 };
+enum Mode { kBits = 0, kNormalF32 = 1, kNormalBF16 = 2, kUniformF32 = 3 };
 enum Walk { kFlat = 0, kPixel = 1, kRow = 2 };
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
@@ -180,6 +201,20 @@ __device__ __forceinline__ void erf_inv_run(const float (&x)[V],
   for (int i = 0; i < V; ++i) out[i] = __fmul_rn(p[i], x[i]);
 }
 
+struct Params {
+  const uint32_t* key;  // device words, or null: k0, k1 below
+  uint32_t k0, k1;
+  uint64_t offset;
+  uint64_t total;        // values drawn (kFlat)
+  int C, Hd, Wd;
+  int J;                 // V-runs a drawn pixel (kPixel) or row (kRow)
+  uint32_t j_mul;        // q / J = (umulhi(q, j_mul) + q) >> j_shift
+  int j_shift;
+  int vec;               // 16-byte stores: the rows are 16-byte aligned
+  float lo, span;        // kUniformF32: minval, maxval - minval
+  float scale;           // kUniformF32, kNormalF32: the trailing factor
+};
+
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -193,7 +228,7 @@ struct Out<kBits> {
   using T = int32_t;
   static constexpr int V = 4;
   static __device__ __forceinline__ void values(const uint32_t (&bits)[V],
-                                                T (&v)[V]) {
+                                                T (&v)[V], const Params& p) {
 #pragma unroll
     for (int i = 0; i < V; ++i) v[i] = (int32_t)bits[i];
   }
@@ -203,7 +238,7 @@ struct Out<kNormalF32> {
   using T = float;
   static constexpr int V = 4;
   static __device__ __forceinline__ void values(const uint32_t (&bits)[V],
-                                                T (&v)[V]) {
+                                                T (&v)[V], const Params& p) {
     const float lo = -0.99999994f;  // nextafter(-1, 0) in float32
     float u[V], e[V];
 #pragma unroll
@@ -214,7 +249,8 @@ struct Out<kNormalF32> {
     }
     erf_inv_run<V>(u, e);
 #pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = __fmul_rn(1.41421356f, e[i]);
+    for (int i = 0; i < V; ++i)
+      v[i] = __fmul_rn(__fmul_rn(1.41421356f, e[i]), p.scale);
   }
 };
 template <>
@@ -222,7 +258,7 @@ struct Out<kNormalBF16> {
   using T = __nv_bfloat16;
   static constexpr int V = 8;
   static __device__ __forceinline__ void values(const uint32_t (&bits)[V],
-                                                T (&v)[V]) {
+                                                T (&v)[V], const Params& p) {
     const float lo = -0.99609375f;  // nextafter(-1, 0) in bfloat16
     float u[V], e[V];
 #pragma unroll
@@ -238,23 +274,25 @@ struct Out<kNormalBF16> {
       v[i] = __float2bfloat16_rn(__fmul_rn(1.4140625f, round_bf16(e[i])));
   }
 };
+template <>
+struct Out<kUniformF32> {
+  using T = float;
+  static constexpr int V = 4;
+  static __device__ __forceinline__ void values(const uint32_t (&bits)[V],
+                                                T (&v)[V], const Params& p) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float unit = __fsub_rn(
+          __uint_as_float((bits[i] >> 9) | 0x3F800000u), 1.0f);
+      v[i] = __fmul_rn(fmaxf(p.lo, __fmaf_rn(unit, p.span, p.lo)), p.scale);
+    }
+  }
+};
 
 // V values of T as one 16-byte word.
 template <typename T, int V>
 struct alignas(16) Vec {
   T v[V];
-};
-
-struct Params {
-  const uint32_t* key;  // device words, or null: k0, k1 below
-  uint32_t k0, k1;
-  uint64_t offset;
-  uint64_t total;        // values drawn (kFlat)
-  int C, Hd, Wd;
-  int J;                 // V-runs a drawn pixel (kPixel) or row (kRow)
-  uint32_t j_mul;        // q / J = (umulhi(q, j_mul) + q) >> j_shift
-  int j_shift;
-  int vec;               // 16-byte stores: the rows are 16-byte aligned
 };
 
 __device__ __forceinline__ int div_j(int q, const Params& p) {
@@ -317,7 +355,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 #pragma unroll
   for (int i = 0; i < V; ++i) bits[i] = x0[i] ^ x1[i];
   Vec<T, V> v;
-  Out<kMode>::values(bits, v.v);
+  Out<kMode>::values(bits, v.v, p);
 
   if (kWalk == kFlat) {
     if (valid == V) {
@@ -386,6 +424,8 @@ __global__ void threefry_split_kernel(uint32_t* __restrict__ out,
   out[2 * i + 1] = x1[0];
 }
 
+__global__ void empty_kernel() {}
+
 template <int kMode, int kWalk, int kF>
 void launch_walk(typename Out<kMode>::T* out, const Params& p, bool carry,
                  dim3 grid, cudaStream_t s) {
@@ -424,23 +464,25 @@ int launch(void* out, const Params& p, int walk, int f, int V, bool carry,
 
 extern "C" {
 
-// mode 0: int32 bits, 1: float32 normals, 2: bfloat16 normals, written to
-// the (N, C, Hd * f, Wd * f) tensor at `out` (NCHW for walk kRow, else
-// channels_last), by the walk, values a thread V, runs J and grid of
-// ops/prng_kernel.normal_plan; `carry`: the launch's counters cross a
-// multiple of 2^32.
+// mode 0: int32 bits, 1: float32 normals times `scale` (rounded on its
+// own; 1 for the layout noise), 2: bfloat16 normals (`scale` must be 1),
+// written to the (N, C, Hd * f, Wd * f) tensor at `out` (NCHW for walk
+// kRow, else channels_last), by the walk, values a thread V, runs J and
+// grid of ops/prng_kernel.normal_plan; `carry`: the launch's counters
+// cross a multiple of 2^32.
 int sg2im_threefry_normal(void* out, const void* key, unsigned k0,
                           unsigned k1, unsigned long long offset, int mode,
                           int walk, int carry, int N, int C, int Hd, int Wd,
                           int f, int V, int J, unsigned j_mul, int j_shift,
                           int vec, unsigned gx, unsigned gy, unsigned gz,
-                          void* stream) {
+                          float scale, void* stream) {
   if (N < 1 || C < 1 || Hd < 1 || Wd < 1 || J < 1 || gx < 1 || gy < 1 ||
-      gz < 1 || gy > 65535 || gz > 65535)
+      gz < 1 || gy > 65535 || gz > 65535 ||
+      (mode != kNormalF32 && scale != 1.0f))
     return (int)cudaErrorInvalidValue;
   const Params p{(const uint32_t*)key, k0, k1, offset,
                  (uint64_t)N * C * Hd * Wd, C, Hd, Wd, J, j_mul, j_shift,
-                 vec};
+                 vec, 0.0f, 0.0f, scale};
   const dim3 grid(gx, gy, gz);
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
@@ -455,6 +497,27 @@ int sg2im_threefry_normal(void* out, const void* key, unsigned k0,
   }
 }
 
+// jax.random.uniform(key, (n,), float32, minval, maxval) times `scale`
+// (rounded on its own) from counter `offset` on, into the n floats at
+// `out`: the flat walk alone, V = 4 values a thread; maxval - minval is
+// rounded to float32 here, as JAX's float32 arithmetic rounds it.
+int sg2im_threefry_uniform(void* out, const void* key, unsigned k0,
+                           unsigned k1, unsigned long long offset,
+                           unsigned long long n, float minval, float maxval,
+                           float scale, void* stream) {
+  constexpr int V = Out<kUniformF32>::V;
+  const uint64_t blocks = ((n + V - 1) / V + kThreads - 1) / kThreads;
+  if (n < 1 || blocks * kThreads >= (1ull << 31))
+    return (int)cudaErrorInvalidValue;
+  const Params p{(const uint32_t*)key, k0, k1, offset, n, 1, 1, 1, 1, 0, 0,
+                 1, minval, maxval - minval, scale};
+  const bool carry = (offset >> 32) != ((offset + n - 1) >> 32);
+  launch_walk<kUniformF32, kFlat, 1>((float*)out, p, carry,
+                                     dim3((unsigned)blocks),
+                                     (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
 // jax.random.split(key, num): num keys of two uint32 words at `out`; the
 // key read from `key` on the card when it is not null, else (k0, k1).
 int sg2im_threefry_split(void* out, const void* key, unsigned k0,
@@ -464,6 +527,13 @@ int sg2im_threefry_split(void* out, const void* key, unsigned k0,
   threefry_split_kernel<<<(num + block - 1) / block, block, 0,
                           (cudaStream_t)stream>>>(
       (uint32_t*)out, (const uint32_t*)key, k0, k1, num);
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel, launched as sg2im_threefry_split launches: the card's
+// least launch on this route.
+int sg2im_threefry_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -8,8 +8,8 @@ State-dict names are upstream's: ``cnn.{i}`` for the patch discriminator,
 the object one, so that the JAX package's variables carry across
 (``ckpt.state_dict_from_jax``).  Upstream's patch discriminator also builds
 a 1x1 ``classifier`` its forward never uses; it is not built here.
-Initialise with :func:`sg2im_tpu_torch.nn.layers.init_weights` and a seeded
-``torch.Generator``.
+``reset_parameters(key)`` gives the weights that flax's ``init`` gives the
+JAX discriminator for the same threefry key (``nn/init.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from sg2im_tpu_torch.nn import init
 from sg2im_tpu_torch.nn.layers import ArchCNN, GlobalAvgPool, parse_arch
 from sg2im_tpu_torch.ops.crop import crop_bbox_padded
 
@@ -38,6 +39,10 @@ class PatchDiscriminator(nn.Module):
         if layout is not None:
             x = torch.cat([x, layout], dim=1)
         return self.cnn(x)
+
+    def reset_parameters(self, key) -> None:
+        """The JAX ``PatchDiscriminator.init`` weights for ``key``."""
+        init.reset_parameters(self, "d_img", key)
 
 
 class AcDiscriminator(nn.Module):
@@ -89,3 +94,7 @@ class AcCropDiscriminator(nn.Module):
         flat_mask = None if obj_mask is None else obj_mask.reshape(N * O)
         real, logits = self.discriminator(crops, sample_mask=flat_mask)
         return real.reshape(N, O, -1), logits.reshape(N, O, -1)
+
+    def reset_parameters(self, key) -> None:
+        """The JAX ``AcCropDiscriminator.init`` weights for ``key``."""
+        init.reset_parameters(self, "d_obj", key)

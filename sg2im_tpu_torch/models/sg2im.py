@@ -25,10 +25,10 @@ from sg2im_tpu_torch.nn.graph import (
     GraphTripleConvNet,
     gather_slots,
 )
+from sg2im_tpu_torch.nn import init
 from sg2im_tpu_torch.nn.layers import (
     MLP,
     BatchNorm,
-    init_weights,
     run_masked,
 )
 from sg2im_tpu_torch.ops.layout import boxes_to_layout, masks_to_layout
@@ -131,9 +131,12 @@ class Sg2ImGenerator(nn.Module):
             quant=crn_quant, quant_head=crn_quant_head,
             quant_min_res=crn_quant_min_res, quant_max_res=crn_quant_max_res)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Seeded initialisation with upstream's distributions."""
-        init_weights(self, generator)
+    def reset_parameters(self, key) -> None:
+        """The JAX package's init for ``key`` (a threefry key, e.g.
+        ``ops.prng.prng_key(seed)``): the weights flax's
+        ``Sg2ImGenerator.init({'params': key}, ...)`` gives, in every
+        ``crn_mode``, drawn where the parameters lie (``nn/init.py``)."""
+        init.reset_parameters(self, "g", key)
 
     # The forward's sections, in order (tools/roofline.py times each).
 

@@ -36,6 +36,7 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _U32 = ctypes.c_uint
 _U64 = ctypes.c_ulonglong
+_F32 = ctypes.c_float
 # source -> {C entry point: argtypes} (every entry returns cudaError_t as int).
 SOURCES = {
     "layout_compose.cu": {
@@ -54,8 +55,11 @@ SOURCES = {
     },
     "threefry.cu": {
         "sg2im_threefry_normal": [_PTR, _PTR, _U32, _U32, _U64] + [_INT] * 10
-        + [_U32, _INT, _INT] + [_U32] * 3 + [_PTR],
+        + [_U32, _INT, _INT] + [_U32] * 3 + [_F32, _PTR],
+        "sg2im_threefry_uniform": [_PTR, _PTR, _U32, _U32, _U64, _U64]
+        + [_F32] * 3 + [_PTR],
         "sg2im_threefry_split": [_PTR, _PTR, _U32, _U32, _INT, _PTR],
+        "sg2im_threefry_empty": [_PTR],
     },
 }
 

@@ -11,6 +11,10 @@ Plain versions in torch ops, on any device.  The names follow
   off): the key ``[0, seed mod 2**32]``;
 * :func:`split` is the partitionable ``threefry_split``: key ``i`` of
   ``num`` is the hash of the counter pair ``(0, i)``;
+* :func:`fold_in` is ``jax.random.fold_in``: the hash of ``(0, data)``;
+  :func:`fold_in_static` is flax's ``_fold_in_static`` (``flax/core/
+  scope.py``), which folds a module path and a counter into a key through
+  their SHA-1 (what ``Module.init`` gives each parameter);
 * :func:`random_bits` hashes the counter pairs ``(hi, lo)`` of each
   element's flat row-major index (plus ``offset``) and XORs the two output
   words;
@@ -37,6 +41,8 @@ this module's functions are its plain versions.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -122,6 +128,58 @@ def split(key, num: int = 2) -> torch.Tensor:
     lo = torch.arange(num, dtype=torch.int64, device=device)
     y0, y1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
     return torch.stack([y0, y1], dim=1).to(torch.uint32)
+
+
+def fold_in(key, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: the two words of
+    ``threefry2x32(key, (0, uint32(data)))`` as a (2,) uint32 tensor on the
+    key's device (the CPU for a key given as ints)."""
+    data = int(data)
+    if not 0 <= data <= MASK32:
+        raise ValueError(f"fold_in takes uint32 data, got {data}")
+    if not isinstance(key, torch.Tensor):
+        return torch.tensor(fold_in_words(key, data),
+                            dtype=torch.int64).to(torch.uint32)
+    k0, k1 = _as_words(key, key.device)
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(k0),
+                          torch.full_like(k1, data))
+    return torch.stack([y0, y1]).to(torch.uint32)
+
+
+def fold_in_words(key, data: int) -> tuple[int, int]:
+    """:func:`fold_in` on the host: the new key's two words as ints (the
+    hash runs on Python ints; a key on the card is read once)."""
+    k0, k1 = key_words(key)
+    return threefry2x32(k0, k1, 0, int(data) & MASK32)
+
+
+def static_fold_data(data) -> int:
+    """The uint32 that flax's ``_fold_in_static`` folds in for ``data``, a
+    sequence of str and int: the first four bytes, big-endian, of the SHA-1
+    of the strings' UTF-8 and the ints' minimal big-endian bytes, with no
+    separator (``flax_fix_rng_separator`` off, flax's default)."""
+    m = hashlib.sha1()
+    for x in data:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        elif isinstance(x, int):
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+        else:
+            raise ValueError(f"expected int or str, got {x!r}")
+    return int.from_bytes(m.digest()[:4], byteorder="big")
+
+
+def fold_in_static(key, data) -> torch.Tensor:
+    """flax's ``_fold_in_static(key, data)``: ``fold_in(key,
+    static_fold_data(data))``, or ``key`` itself for empty ``data``.  A
+    parameter's key under ``Module.init({'params': key})`` is this of its
+    module path and the 1-based count of ``self.param`` calls in its own
+    module (``Scope.make_rng``)."""
+    data = tuple(data)
+    if not data:
+        return key if isinstance(key, torch.Tensor) else torch.tensor(
+            key_words(key), dtype=torch.int64).to(torch.uint32)
+    return fold_in(key, static_fold_data(data))
 
 
 def _counters(shape, offset: int, device):

@@ -1,5 +1,5 @@
-"""Threefry normals: the Hopper kernel's wrappers, their plain versions and
-their launch counters.
+"""Threefry normals and uniforms: the Hopper kernel's wrappers, their plain
+versions and their launch counters.
 
 ``threefry_normal(key, (N, C, H, W), f, dtype, offset)`` is the layout noise
 of the JAX package: ``jax.random.normal(key, (N, H / f, W / f, C), dtype)``
@@ -7,12 +7,17 @@ drawn from flat index ``offset`` on, nearest-upsampled by ``f`` and returned
 as the (N, C, H, W) tensor the generator takes (NCHW, or channels_last when
 asked: the JAX array's own bytes).  ``threefry_bits`` is the same walk with
 the 32 random bits of each element (int32) in place of the normal, for
-checking the hash.  ``threefry_split(key, num)`` is ``jax.random.split``
-in one launch, for a key that lives on the card (the train step's).  The
-CUDA source is ``csrc/threefry.cu``, whose notes say what bounds the
-kernels; they replace no TPU kernel (XLA expands ``jax.random`` itself on
-the TPU).  ``normal_plan`` is the kernel's walk over one draw (values a
-thread, the grid); the wrapper passes it to the launch.
+checking the hash.  ``threefry_uniform(key, n, minval, maxval, scale)``
+is the flat walk alone with ``jax.random.uniform(key, (n,), float32,
+minval, maxval)``, times ``scale`` rounded on its own: the parameter
+init's uniform leaves (``nn/init.py``), as the normal's ``scale`` is its
+normal ones.  ``threefry_split(key, num)`` is
+``jax.random.split`` in one launch, for a key that lives on the card (the
+train step's).  The CUDA source is ``csrc/threefry.cu``, whose notes say
+what bounds the kernels; they replace no TPU kernel (XLA expands
+``jax.random`` itself on the TPU).  ``normal_plan`` is the kernel's walk
+over one draw (values a thread, the grid); the wrappers pass it to the
+launch.
 
 For CUDA output each wrapper launches the kernel or raises; for CPU output
 it computes the plain version (``ops.prng``).  A key on the card is read by
@@ -26,6 +31,7 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from sg2im_tpu_torch.ops import prng
@@ -162,7 +168,9 @@ def _key_args(key, device):
     return None, k0, k1
 
 
-def _launch(mode, key, shape, f, offset, dtype, memory_format, device):
+def _launch(mode, key, shape, f, offset, dtype, memory_format, device,
+            scale=1.0):
+    """One launch of the normal entry in ``mode``."""
     from sg2im_tpu_torch.ops._build import load_library
 
     plan = _cached_plan(tuple(shape), f, memory_format, dtype, int(offset))
@@ -170,16 +178,23 @@ def _launch(mode, key, shape, f, offset, dtype, memory_format, device):
     kptr, k0, k1 = _key_args(key, device)
     out = torch.empty((N, C, Hd * f, Wd * f), dtype=dtype, device=device,
                       memory_format=memory_format)
+    lib = load_library()
+    args = (out.data_ptr(), None if kptr is None else kptr.data_ptr(), k0,
+            k1, int(offset))
+    walk = (plan.walk, int(plan.carry), N, C, Hd, Wd, f, plan.V, plan.J,
+            plan.j_mul, plan.j_shift, int(plan.vec), *plan.grid)
     with torch.cuda.device(device):
-        rc = load_library().sg2im_threefry_normal(
-            out.data_ptr(), None if kptr is None else kptr.data_ptr(),
-            k0, k1, int(offset), mode, plan.walk, int(plan.carry), N, C, Hd,
-            Wd, f, plan.V, plan.J, plan.j_mul, plan.j_shift, int(plan.vec),
-            *plan.grid, torch.cuda.current_stream().cuda_stream)
+        rc = lib.sg2im_threefry_normal(*args, mode, *walk, scale,
+                                       torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sg2im_threefry_normal launch failed: "
                            f"cudaError {rc}")
     return out
+
+
+def _f32(x) -> float:
+    """``x`` rounded to float32, as a Python float."""
+    return float(np.float32(x))
 
 
 def _device(key, device):
@@ -198,20 +213,67 @@ def _device(key, device):
 
 def threefry_normal(key, shape, f: int = 1, dtype=torch.float32,
                     offset: int = 0, device=None,
-                    memory_format=torch.contiguous_format) -> torch.Tensor:
+                    memory_format=torch.contiguous_format,
+                    scale=None) -> torch.Tensor:
     """The (N, C, H, W) layout noise of ``key``: element (n, c, y, x) is
     element (n, y // f, x // f, c) of ``jax.random.normal(key, (N, H // f,
     W // f, C), dtype)`` started at flat index ``offset``.  On ``device``
-    (default the key's, the CPU for ints)."""
+    (default the key's, the CPU for ints).  ``scale`` (float32 only):
+    each value times ``float32(scale)``, rounded on its own, as flax's
+    eager ``normal(key, shape) * scale``."""
     if dtype not in _DTYPES:
         raise TypeError(f"dtype must be one of {tuple(_DTYPES)}, got {dtype}")
+    if scale is not None and dtype != torch.float32:
+        raise TypeError("a scaled normal is float32 (parameters are)")
+    scale = 1.0 if scale is None else _f32(scale)
     device = _device(key, device)
     if device.type == "cpu":
-        return _plain(lambda k, s, d: prng.normal(k, s, dtype, offset, d),
-                      key, shape, f, memory_format, device)
+        return _plain(lambda k, s, d: _scaled(
+            prng.normal(k, s, dtype, offset, d), scale),
+            key, shape, f, memory_format, device)
     out = _launch(_DTYPES[dtype], key, shape, f, offset, dtype,
-                  memory_format, device)
+                  memory_format, device, scale=scale)
     threefry_normal.launches += 1
+    return out
+
+
+def _scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
+    return x if scale == 1.0 else x * torch.tensor(scale, dtype=x.dtype,
+                                                   device=x.device)
+
+
+def threefry_uniform(key, n: int, minval=0.0, maxval=1.0, scale=None,
+                     offset: int = 0, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), float32, minval, maxval)`` from flat
+    index ``offset`` on (the bounds rounded to float32 first, as JAX
+    rounds them), each value times ``float32(scale)`` when given, rounded
+    on its own (flax's eager ``uniform(...) * scale``): a flat float32
+    vector on ``device`` (default the key's, the CPU for ints), one launch
+    of the kernel's flat walk on the card.  float32 only: the parameters
+    it draws are float32."""
+    from sg2im_tpu_torch.ops._build import load_library
+
+    n, offset = int(n), int(offset)
+    if not (n >= 1 and 0 <= offset and offset + n <= 1 << 64):
+        raise ValueError(f"{n} values from offset {offset}: n must be >= 1 "
+                         f"and the counters within 64 bits")
+    lo, hi = _f32(minval), _f32(maxval)
+    scale = 1.0 if scale is None else _f32(scale)
+    device = _device(key, device)
+    if device.type == "cpu":
+        return _scaled(prng.uniform(key, (n,), torch.float32, lo, hi, offset,
+                                    device), scale)
+    kptr, k0, k1 = _key_args(key, device)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = load_library().sg2im_threefry_uniform(
+            out.data_ptr(), None if kptr is None else kptr.data_ptr(), k0,
+            k1, offset, n, lo, hi, scale,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sg2im_threefry_uniform launch failed: "
+                           f"cudaError {rc}")
+    threefry_uniform.launches += 1
     return out
 
 
@@ -254,6 +316,23 @@ def threefry_split(key, num: int = 2, device=None) -> torch.Tensor:
     return out
 
 
+def empty_launch(device=None) -> None:
+    """One launch of an empty kernel by the route the split takes (ctypes,
+    one ``<<<1, 1>>>`` launch on the current stream): the card's least
+    launch, printed beside the split's time.  Measurement only; counts
+    nothing."""
+    from sg2im_tpu_torch.ops._build import load_library
+
+    device = _device(None, device or "cuda")
+    with torch.cuda.device(device):
+        rc = load_library().sg2im_threefry_empty(
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sg2im_threefry_empty launch failed: "
+                           f"cudaError {rc}")
+
+
 threefry_normal.launches = 0
+threefry_uniform.launches = 0
 threefry_bits.launches = 0
 threefry_split.launches = 0

@@ -227,13 +227,16 @@ def tiny_config():
     return vocab, kwargs
 
 
-def random_state(vocab, kwargs, seed: int = 0) -> dict:
-    """The generator's weights from ``seed`` (upstream's distributions)."""
+def random_state(vocab, kwargs, seed: int = 0, device=None) -> dict:
+    """The generator's weights that the JAX package's init gives
+    ``PRNGKey(seed)`` (bench.py:136-141 builds its model from
+    ``PRNGKey(0)``), drawn on ``device`` (default the CPU)."""
     from sg2im_tpu_torch.models import Sg2ImGenerator
+    from sg2im_tpu_torch.nn.init import init_state_dict
+    from sg2im_tpu_torch.ops.prng import prng_key
 
-    model = Sg2ImGenerator(vocab, **kwargs)
-    model.reset_parameters(torch.Generator().manual_seed(seed))
-    return model.state_dict()
+    return init_state_dict(Sg2ImGenerator(vocab, **kwargs), "g",
+                           prng_key(seed), device)
 
 
 def bench_inputs(N: int, vocab, O: int = 16, T: int = 32, live: int = 11):

@@ -13,8 +13,9 @@ standard output is one JSON object with ``bench.py``'s keys:
 
 * ``value``: the median img/s of ``--repeats`` windows of ``--iters``
   forwards of the generator at vg128 on ``bench.py:126-134``'s inputs
-  (O 16 with 11 live objects, T 32, ``RandomState(0)``), random weights
-  from seed 0 and bench.py:143's pinned noise, ``jax.random.normal(
+  (O 16 with 11 live objects, T 32, ``RandomState(0)``), bench.py's
+  weights (the JAX package's init of ``PRNGKey(0)``, drawn on the card by
+  the threefry kernel) and bench.py:143's pinned noise, ``jax.random.normal(
   PRNGKey(2), (N, 128, 128, 32))``, drawn on the card by the threefry
   kernel, in the chosen mode (bf16 /
   'split', the production mode, by default); each window ends with one
@@ -134,14 +135,16 @@ def flagship_config(bf16: bool = True, crn_mode: str = "split",
 
 def flagship_engine(device="cuda", bf16: bool = True,
                     crn_mode: str = "split", config: str = "vg128"):
-    """An ``InferenceEngine`` in the chosen mode on random weights from seed
-    0 (``_measure.random_state``), with the engine's production set-up:
+    """An ``InferenceEngine`` in the chosen mode on bench.py's weights,
+    the JAX package's init of ``PRNGKey(0)`` drawn on ``device``
+    (``_measure.random_state``), with the engine's production set-up:
     channels_last, the geometry in true float32."""
     from sg2im_tpu_torch.inference import InferenceEngine
 
     vocab, base = _generator_config(config)
     _, kwargs = flagship_config(bf16, crn_mode, config)
-    return InferenceEngine(vocab, kwargs, M.random_state(vocab, base),
+    return InferenceEngine(vocab, kwargs,
+                           M.random_state(vocab, base, device=device),
                            device=str(device))
 
 
@@ -220,24 +223,27 @@ def _measure_train(batch: int, iters: int, repeats: int, device="cuda",
     return dt, batch / dt, batch / dt / baseline_ips, [batch / d for d in dts]
 
 
-def build_proxy(config: str = "vg128"):
+def build_proxy(config: str = "vg128", device=None):
     """(vocab, generator kwargs, state dict, scene graphs): the flagship
     proxy of scripts/attrib_psnr.py:76-123 (``tiny_config`` at
-    ``config='tiny'``).  Weights from ``reset_parameters`` on a
-    ``torch.Generator`` seeded with 0; the box head's last Linear scaled
-    by 0.01 with bias (0.15, 0.2, 0.85, 0.8), so that the boxes behind its
-    final ReLU have positive extent."""
+    ``config='tiny'``).  Weights: bench.py's, the JAX package's init of
+    ``PRNGKey(0)`` (bench.py:136-141) drawn on ``device`` (default the
+    CPU); the box head's last Linear scaled by 0.01 with bias (0.15, 0.2,
+    0.85, 0.8), so that the boxes behind its final ReLU have positive
+    extent."""
     from sg2im_tpu_torch.models import Sg2ImGenerator
+    from sg2im_tpu_torch.nn.init import init_state_dict
+    from sg2im_tpu_torch.ops.prng import prng_key
 
     vocab, kwargs = _generator_config(config)
     model = Sg2ImGenerator(vocab, **kwargs)
-    model.reset_parameters(torch.Generator().manual_seed(0))
-    last = [m for m in model.box_net.modules()
+    state = init_state_dict(model, "g", prng_key(0), device)
+    last = [name for name, m in model.box_net.named_modules()
             if isinstance(m, torch.nn.Linear)][-1]
-    with torch.no_grad():
-        last.weight.mul_(0.01)
-        last.bias.copy_(torch.tensor([0.15, 0.2, 0.85, 0.8]))
-    return vocab, kwargs, model.state_dict(), PROXY_GRAPHS
+    state[f"box_net.{last}.weight"] *= 0.01
+    state[f"box_net.{last}.bias"] = torch.tensor(
+        [0.15, 0.2, 0.85, 0.8], device=state[f"box_net.{last}.bias"].device)
+    return vocab, kwargs, state, PROXY_GRAPHS
 
 
 def check_boxes(engine, graphs, boxes) -> None:
@@ -281,7 +287,7 @@ def measure_psnr_vs_reference(device="cuda", bf16: bool = True,
     from sg2im_tpu_torch.inference import InferenceEngine
     from sg2im_tpu_torch.utils.metrics import psnr
 
-    vocab, kwargs, state, graphs = build_proxy(config)
+    vocab, kwargs, state, graphs = build_proxy(config, device)
     ref = InferenceEngine(vocab, kwargs, state, device="cpu")
     ref_imgs, boxes = _images(ref, graphs)
     check_boxes(ref, graphs, boxes)

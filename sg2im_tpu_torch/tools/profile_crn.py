@@ -3,8 +3,9 @@
 Port of ``scripts/profile_crn.py``.  At vg128 b128 in bf16, each CRN
 stage (layout resolution 8 ... 128; feats 1, 1024, 512, 256, 128
 channels at half the resolution; 1024 ... 64 out; eval BatchNorm,
-LeakyReLU 0.2) is one ``RefinementModule`` with random weights from seed
-0, timed alone with CUDA events in each mode:
+LeakyReLU 0.2) is one ``RefinementModule`` with the weights of that
+stage of the generator that the JAX package's init gives ``PRNGKey(0)``
+(``nn/init.py``), timed alone with CUDA events in each mode:
 
 * legacy (upsample, concat, one conv), split (the layout and the
   upsampled feats convolved apart), phase (the feats branch as four phase
@@ -54,13 +55,17 @@ def stage_shapes(H: int, dims) -> list[tuple]:
             for i in range(n)]
 
 
-def stage_modules(L: int, cin: int, co: int, device) -> dict:
-    """{mode: RefinementModule} sharing one set of weights, initialised
-    from seed 0 with upstream's distributions."""
-    from sg2im_tpu_torch.nn.layers import init_weights
+def stage_modules(L: int, cin: int, co: int, device, stage: int) -> dict:
+    """{mode: RefinementModule} sharing one set of weights: those of the
+    generator's CRN stage ``stage`` (0-based) under the JAX package's init
+    of ``PRNGKey(0)``."""
+    from sg2im_tpu_torch.nn import init
+    from sg2im_tpu_torch.ops.prng import prng_key
 
-    base = crn.RefinementModule(L, cin, co, "batch", "leakyrelu-0.2")
-    init_weights(base, torch.Generator().manual_seed(0))
+    base = crn.RefinementModule(L, cin, co, "batch",
+                                "leakyrelu-0.2").to(device)
+    init.reset_parameters(base, "g", prng_key(0),
+                          prefix=f"refinement_net.refinement_modules.{stage}.")
     mods = {}
     for mode in MODES:
         conv0_mode = {"packed": "legacy", "split_noise": "split"}.get(mode,
@@ -124,7 +129,7 @@ def main(argv=None) -> int:
     with torch.inference_mode(), full_fp32():
         for s, (res, cin, co) in enumerate(stage_shapes(args.image,
                                                         args.dims), 1):
-            mods = stage_modules(LAYOUT_DIM, cin, co, device)
+            mods = stage_modules(LAYOUT_DIM, cin, co, device, s - 1)
             layout = torch.randn((args.batch, LAYOUT_DIM, res, res),
                                  generator=gen, device=device).contiguous(
                 memory_format=torch.channels_last)

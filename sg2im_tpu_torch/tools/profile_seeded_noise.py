@@ -57,7 +57,8 @@ def main(argv=None) -> int:
 
     vocab, kwargs = (M.vg128_config() if args.config == "vg128"
                      else M.tiny_config())
-    engine = InferenceEngine(vocab, kwargs, M.random_state(vocab, kwargs),
+    engine = InferenceEngine(vocab, kwargs, M.random_state(vocab, kwargs,
+                                                       device=device),
                              device=str(device),
                              compute_dtype=torch.bfloat16, crn_mode="split")
     gb = M.bench_inputs(args.batch, vocab)

@@ -106,7 +106,7 @@ def main(argv=None) -> int:
 
     vocab, kwargs = (M.vg128_config() if args.config == "vg128"
                      else M.tiny_config())
-    state = M.random_state(vocab, kwargs)
+    state = M.random_state(vocab, kwargs, device=device)
     sgs = gate_graphs(vocab)
     ground = InferenceEngine(vocab, kwargs, state, device="cpu")
     ref_u8, ref_out = ground.generate(sgs, noise="zeros")

@@ -287,7 +287,7 @@ def main(argv=None) -> int:
     print(card)
     vocab, kwargs = (M.vg128_config() if args.config == "vg128"
                      else M.tiny_config())
-    state = M.random_state(vocab, kwargs, seed=0)
+    state = M.random_state(vocab, kwargs, seed=0, device=device)
     batch = M.bench_inputs(args.batch, vocab)
     measured, prows = peak_rows(device, args)
     results = []

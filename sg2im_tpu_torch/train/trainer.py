@@ -25,7 +25,8 @@ Random numbers are the JAX Trainer's (``ops.prng``): the state's key is
 ``split(PRNGKey(seed), 5)[0]``, each step splits it, ``check_model`` draws
 batch k's layout noise from the k-th split of ``PRNGKey(step)``, the
 triptych from ``PRNGKey(seed)`` and ``step_breakdown`` from
-``PRNGKey(0)``.  The weights keep the port's own torch init.
+``PRNGKey(0)``.  So are the fresh weights: flax's init of the JAX models
+from the keys the JAX Trainer splits off (``nn/init.py``).
 """
 
 from __future__ import annotations
@@ -43,9 +44,9 @@ from sg2im_tpu_torch.models import (
     PatchDiscriminator,
     Sg2ImGenerator,
 )
-from sg2im_tpu_torch.nn.layers import init_weights
+from sg2im_tpu_torch.nn.init import init_draws, init_state_dict
 from sg2im_tpu_torch.ops.prng import prng_key, split
-from sg2im_tpu_torch.ops.prng_kernel import threefry_normal
+from sg2im_tpu_torch.ops.prng_kernel import threefry_normal, threefry_split
 from sg2im_tpu_torch.parallel import collectives
 from sg2im_tpu_torch.parallel.mesh import replicate_state
 from sg2im_tpu_torch.train.config import TrainConfig
@@ -141,24 +142,25 @@ class Trainer:
         return batch
 
     def init_state(self, seed: int | None = None) -> TrainState:
-        """Fresh weights from one CPU ``torch.Generator`` seeded with
-        ``seed`` (default config.seed), G then D_obj then D_img, with
-        upstream's distributions; fresh Adams; the key the JAX Trainer
-        starts from, ``split(PRNGKey(seed), 5)[0]``, on the device.  In a
-        data-parallel run every rank then holds rank 0's state (one
-        broadcast per dtype)."""
+        """The JAX Trainer's fresh state for ``seed`` (default config.seed;
+        ``sg2im_tpu/train/trainer.py:83-122``), drawn on the device:
+        ``split(PRNGKey(seed), 5)`` gives the state's key and the keys of
+        G, D_obj and D_img, whose weights are flax's init of the JAX
+        models for those keys (``nn/init.py``); fresh Adams.  On the card
+        the split is one launch and each drawn leaf one threefry launch
+        (:meth:`init_launches`).  In a data-parallel run every rank then
+        holds rank 0's state (one broadcast per dtype)."""
         seed = self.config.seed if seed is None else seed
-        gen = torch.Generator().manual_seed(seed)
+        keys = threefry_split(prng_key(seed), 5, device=self.device)
         fields = {"step": torch.zeros((), dtype=torch.int32,
                                       device=self.device),
-                  "rng": self.initial_key(seed)}
-        for name in ("g", "d_obj", "d_img"):
+                  "rng": keys[0].clone()}
+        for i, name in enumerate(("g", "d_obj", "d_img"), start=1):
             module = self.modules()[name]
             if module is None:
                 continue
-            init_weights(module, gen)
-            sd = {k: v.detach().to(self.device, copy=True) for k, v in
-                  module.state_dict().items()}
+            drawn = init_state_dict(module, name, keys[i], self.device)
+            sd = {k: drawn[k] for k in module.state_dict()}
             fields[name] = sd
             fields[name + "_opt"] = self.optimizers[name].init(
                 {k: sd[k] for k, _ in module.named_parameters()})
@@ -168,11 +170,15 @@ class Trainer:
             state = replicate_state(state, self.group)
         return state
 
-    def initial_key(self, seed: int | None = None) -> torch.Tensor:
-        """The key of a fresh state of ``seed`` (default config.seed) on
-        the device, as the JAX Trainer's ``init_state`` leaves it."""
-        seed = self.config.seed if seed is None else seed
-        return split(prng_key(seed), 5)[0].to(self.device)
+    def init_launches(self) -> dict[str, int]:
+        """The kernel launches of :meth:`init_state` on the card: the key's
+        split and one threefry draw a drawn leaf."""
+        total = {"threefry_split": 1}
+        for name, module in self.modules().items():
+            if module is not None:
+                for k, n in init_draws(module, name).items():
+                    total[k] = total.get(k, 0) + n
+        return total
 
     def modules(self) -> dict:
         return {"g": self.generator, "d_obj": self.d_obj,

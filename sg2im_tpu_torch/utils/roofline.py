@@ -157,10 +157,14 @@ class ThreefryOps(NamedTuple):
 # the rounds, 1 at the end) are bound to the ALU: an add runs as an IMAD
 # on the FMA pipe, a rotate as two (the low and high words of x * 2^r),
 # and a shift-or as one IMAD.HI.  split(key) writes a key a hash, without
-# the final xor and with no uniform: 66 and 20.
+# the final xor and with no uniform: 66 and 20.  The parameter init's
+# uniform (float32): the hash, the xor and the mantissa (68), then f - 1,
+# the fused affine map, the max with minval and the product with the
+# scale (4): 72, 21 on the ALU.
 THREEFRY_OPS = {"f32": ThreefryOps(68 + 15, 21),
                 "bf16": ThreefryOps(69 + 14, 21),
-                "split": ThreefryOps(66, 20)}
+                "split": ThreefryOps(66, 20),
+                "uniform": ThreefryOps(68 + 4, 21)}
 
 
 def threefry_bounds(values: int, out_bytes: int, ops: ThreefryOps,

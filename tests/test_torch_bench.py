@@ -30,6 +30,7 @@ from sg2im_tpu_torch.ckpt import state_dict_from_jax
 from sg2im_tpu_torch.inference import InferenceEngine
 from sg2im_tpu_torch.tools import _measure as M
 from sg2im_tpu_torch.tools import bench as B
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The forward's bar: tests/test_torch_generator.py's for convolution

@@ -29,6 +29,7 @@ from sg2im_tpu_torch.ops import conv_kernel as ck
 from sg2im_tpu_torch.ops import layout as tlayout
 from sg2im_tpu_torch.ops import layout_kernel as lk
 from sg2im_tpu_torch.ops import relayout as rl
+from sg2im_tpu_torch.ops.prng import prng_key
 
 pytestmark = pytest.mark.cuda
 
@@ -249,7 +250,7 @@ def test_packed_generator_launches_the_relayout_kernel(card):
     kwargs = dict(kwargs, image_size=(64, 64),
                   refinement_dims=(64, 32, 16, 8), crn_mode="packed")
     model = Sg2ImGenerator(vocab, **kwargs)
-    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.reset_parameters(prng_key(0))
     model.eval()
     gen = torch.Generator().manual_seed(1)
     args = (torch.randint(1, 179, (2, 8), generator=gen),
@@ -316,7 +317,7 @@ def test_device_noise_makes_no_host_copy(card):
     vocab, kwargs = chip_smoke.vg128_config()
     kwargs = dict(kwargs, image_size=(64, 64), refinement_dims=(64, 32, 16, 8))
     model = Sg2ImGenerator(vocab, **kwargs)
-    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.reset_parameters(prng_key(0))
     engine = InferenceEngine(vocab, kwargs, model.state_dict(), device=card)
     gen = torch.Generator(device=card).manual_seed(1)
     noise = torch.randn((4, 64, 64, 32), generator=gen, device=card)
@@ -461,7 +462,7 @@ def test_seeded_generate_launches_threefry_once(card):
     vocab, kwargs = chip_smoke.vg128_config()
     kwargs = dict(kwargs, image_size=(64, 64), refinement_dims=(64, 32, 16, 8))
     model = Sg2ImGenerator(vocab, **kwargs)
-    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.reset_parameters(prng_key(0))
     engine = InferenceEngine(vocab, kwargs, model.state_dict(), device=card)
     graphs = chip_smoke.random_graphs(vocab, 3, np.random.RandomState(2))
     before = (pk.threefry_normal.launches, lk.layout_compose.launches)

@@ -18,6 +18,7 @@ from sg2im_tpu.models import Sg2ImGenerator as JaxGenerator
 from sg2im_tpu_torch.ckpt import state_dict_from_jax
 from sg2im_tpu_torch.data import imagenet_deprocess_batch
 from sg2im_tpu_torch.models import Sg2ImGenerator
+from sg2im_tpu_torch.ops.prng import prng_key
 
 EXACT = 2e-5
 CONV = 1e-4
@@ -148,8 +149,8 @@ def test_noise_is_required_when_the_model_takes_it(jax_case):
 def test_seeded_init_is_reproducible():
     a = Sg2ImGenerator(VOCAB, **SMALL)
     b = Sg2ImGenerator(VOCAB, **SMALL)
-    a.reset_parameters(torch.Generator().manual_seed(5))
-    b.reset_parameters(torch.Generator().manual_seed(5))
+    a.reset_parameters(prng_key(5))
+    b.reset_parameters(prng_key(5))
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(va, vb), k
     # Conv weights of the CRN take kaiming-normal: std sqrt(2 / fan_in).

@@ -228,7 +228,7 @@ GRAPHS = [{"objects": ["cat", "dog", "sky"],
 @pytest.fixture(scope="module")
 def weights():
     model = Sg2ImGenerator(VOCAB, **MODEL)
-    model.reset_parameters(torch.Generator().manual_seed(4))
+    model.reset_parameters(prng.prng_key(4))
     state = model.state_dict()
     return state, convert_generator_state(state)
 

@@ -32,6 +32,7 @@ from scripts import train_proof as jax_proof
 from scripts import trained_fidelity as jax_fidelity
 from sg2im_tpu_torch.tools import loader_bench, train_proof, trained_fidelity
 from test_cli import TINY_FLAGS
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

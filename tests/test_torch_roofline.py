@@ -270,7 +270,7 @@ def test_sass_mix_and_threefry_bound():
     assert sum(v for k, v in mix.items() if k in R.INT_OPCODES) == 3
     assert R.sass_mix(SASS, "nothing") == {}
     assert R.THREEFRY_OPS == {"f32": (83, 21), "bf16": (83, 21),
-                              "split": (66, 20)}
+                              "split": (66, 20), "uniform": (72, 21)}
     values = 128 * 32 * 128 * 128
     ms, by = R.threefry_bounds(values, 4 * values, R.THREEFRY_OPS["f32"],
                                132, 1.98e9)
