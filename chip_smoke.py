@@ -28,11 +28,14 @@ with a non-zero exit code:
    cuDNN's bf16 conv, beside the plain versions, the weight packing alone
    and the bound;
 5. relayout: both entries of the space-to-depth / depth-to-space kernel
-   bit-equal to their plain versions at the packed CRN's batch-128 shapes
-   and on ragged and unaligned cases, then their time beside the plain
-   version's, beside a copy_ of the same bytes and beside the one copy
-   that computes the same function (a view of the NHWC tensor permuted
-   and reshaped: torch's own relayout);
+   bit-equal to their plain versions at the packed CRN's and the phase
+   CRN's batch-128 shapes and on ragged and unaligned cases, with the
+   route each took (no path shape on the units route, here and on every
+   path driven later), then their time beside the plain version's, beside
+   a copy_ of the same bytes and beside the one copy that computes the
+   same function (a view of the NHWC tensor permuted and reshaped:
+   torch's own relayout); the packed path's sums go into the kernels
+   line, the phase path's d2s sum beside its bound on a line of its own;
 5b. threefry: the threefry-normal kernel (the JAX package's
    jax.random.normal, drawn on the card) against its plain version
    (ops.prng) on the card: the random bits bit-equal and the normals
@@ -774,6 +777,13 @@ RELAYOUT_PATH = {
                                         "bfloat16", 0),
     "d2s head N128 C12 64x64 f32": ("d2s", (128, 12, 64, 64), "float32", 0),
 }
+# The 'phase' CRN's d2s, one a stage (the vg128 forward at batch 128 in
+# bf16: the conv0 phases of stages 1-5 interleaved to the stage's
+# resolution).
+RELAYOUT_PHASE_PATH = {
+    f"phase d2s N128 C{c} {r}x{r} bf16": ("d2s", (128, c, r, r), "bfloat16",
+                                         0)
+    for c, r in ((4096, 4), (2048, 8), (1024, 16), (512, 32), (256, 64))}
 RELAYOUT_RAGGED = {
     "s2d ragged N3 C5 6x10 f32": ("s2d", (3, 5, 6, 10), "float32", 0),
     "s2d ragged N2 C3 14x6 bf16": ("s2d", (2, 3, 14, 6), "bfloat16", 0),
@@ -840,49 +850,104 @@ def check_relayout_case(torch, name, entry, shape, dtype, offset, seed=0):
     return (got.float() - want.float()).abs().max().item()
 
 
+def check_relayout_routes(what):
+    """Fail if a relayout on a path took the units route, the one for
+    inputs off 16-byte alignment (``ops/relayout.relayout_plan``)."""
+    from sg2im_tpu_torch.ops import relayout as rl
+
+    for wrapper in (rl.space_to_depth, rl.depth_to_space):
+        if wrapper.unaligned_launches:
+            fail(f"{what}: {wrapper.__name__} took the units route "
+                 f"{wrapper.unaligned_launches} times of {wrapper.launches}")
+
+
+def relayout_route(entry, shape, dtype, offset=0):
+    """The plan's route name of one case (its input ``offset`` elements
+    into an aligned buffer, as relayout_input makes it; a fresh output),
+    and the plan."""
+    from sg2im_tpu_torch.ops import relayout as rl
+
+    N, C, H, W = shape
+    R, Rw, c = (H // 2, W // 2, C) if entry == "s2d" else (H, W, C // 4)
+    elsize = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
+    plan = rl.relayout_plan(N, R, Rw, c, elsize, offset * elsize, 0)
+    return rl.ROUTES[plan.route], plan
+
+
+def time_relayout_case(torch, name, entry, shape, dtype, card):
+    """{'': kernel, '_plain', '_copy', '_library': ms} of one path shape at
+    batch 128, each output held to the plain version's first."""
+    x = relayout_input(torch, shape, dtype, seed=3)
+    fn, plain = relayout_entry(entry)
+    dst = torch.empty_like(x)
+    library = relayout_library(entry, x)
+    if not torch.equal(library().permute(0, 3, 1, 2), fn(x)):
+        fail(f"relayout {name}: the permuted copy differs from the kernel")
+    ms = {"": time_ms(lambda: fn(x)),
+          "_plain": time_ms(lambda: plain(x)),
+          "_copy": time_ms(lambda: dst.copy_(x)),
+          "_library": time_ms(library)}
+    gb = 2 * x.numel() * x.element_size() / 1e9  # read + write
+    print(f"[relayout] b128 {name} (ms): kernel {ms['']:.4f} "
+          f"({gb / ms[''] * 1e3:.0f} GB/s) vs plain "
+          f"{ms['_plain']:.4f} ({gb / ms['_plain'] * 1e3:.0f} GB/s) "
+          f"vs copy_ {ms['_copy']:.4f} "
+          f"({gb / ms['_copy'] * 1e3:.0f} GB/s) vs the permuted copy "
+          f"{ms['_library']:.4f} "
+          f"({gb / ms['_library'] * 1e3:.0f} GB/s); on {card}")
+    return ms
+
+
 def phase_relayout(torch, card):
-    """K3's entries against their plain versions on every case, then their
-    time at the path's batch-128 shapes beside the plain version and a
-    copy_ of the same bytes."""
+    """K3's entries against their plain versions on every case, each
+    case's route printed (no path shape may take the units route), then
+    their time at the packed and the phase path's batch-128 shapes beside
+    the plain version, a copy_ of the same bytes and the permuted copy.
+    The kernels line's K3 rows are the packed path's sums; the phase
+    path's d2s sum stands on a line of its own."""
     errs = {"s2d": 0.0, "d2s": 0.0}
-    times = {f"{e}{k}": 0.0 for e in ("s2d", "d2s")
+    times = {f"{e}{k}": 0.0 for e in ("s2d", "d2s", "phase_d2s")
              for k in ("", "_plain", "_copy", "_library")}
+    paths = {**RELAYOUT_PATH, **RELAYOUT_PHASE_PATH}
+    routes = {}
     with torch.inference_mode():
-        cases = {**RELAYOUT_PATH, **RELAYOUT_RAGGED}
+        cases = {**paths, **RELAYOUT_RAGGED}
         for i, (name, case) in enumerate(cases.items()):
-            errs[case[0]] = max(errs[case[0]],
-                                check_relayout_case(torch, name, *case,
-                                                    seed=i))
+            entry, shape, dtype, offset = case
+            wrapper = relayout_entry(entry)[0]
+            before = wrapper.unaligned_launches
+            errs[entry] = max(errs[entry],
+                              check_relayout_case(torch, name, *case,
+                                                  seed=i))
+            routes[name] = relayout_route(entry, shape, dtype, offset)[0]
+            unaligned = wrapper.unaligned_launches - before
+            if unaligned != (routes[name] == "units"):
+                fail(f"relayout {name}: planned the {routes[name]} route, "
+                     f"{unaligned} launches on the units route")
+            if name in paths and routes[name] == "units":
+                fail(f"relayout {name}: the path shape took the units route")
         print(f"[relayout] {len(cases)} cases bit-equal to the plain "
-              f"versions: max_abs_err s2d {errs['s2d']} d2s {errs['d2s']}")
-        for name, (entry, shape, dtype, _) in RELAYOUT_PATH.items():
-            x = relayout_input(torch, shape, dtype, seed=3)
-            fn, plain = relayout_entry(entry)
-            dst = torch.empty_like(x)
-            library = relayout_library(entry, x)
-            if not torch.equal(library().permute(0, 3, 1, 2), fn(x)):
-                fail(f"relayout {name}: the permuted copy differs from the "
-                     f"kernel")
-            ms = {"": time_ms(lambda: fn(x)),
-                  "_plain": time_ms(lambda: plain(x)),
-                  "_copy": time_ms(lambda: dst.copy_(x)),
-                  "_library": time_ms(library)}
+              f"versions: max_abs_err s2d {errs['s2d']} d2s {errs['d2s']}; "
+              f"routes {routes}")
+        for name, (entry, shape, dtype, _) in paths.items():
+            plan = relayout_route(entry, shape, dtype)[1]
+            print(f"[relayout] plan of {name}: {plan._asdict()}")
+            ms = time_relayout_case(torch, name, entry, shape, dtype, card)
+            key = entry if name in RELAYOUT_PATH else "phase_d2s"
             for k, v in ms.items():
-                times[entry + k] += v
-            gb = 2 * x.numel() * x.element_size() / 1e9  # read + write
-            print(f"[relayout] b128 {name} (ms): kernel {ms['']:.4f} "
-                  f"({gb / ms[''] * 1e3:.0f} GB/s) vs plain "
-                  f"{ms['_plain']:.4f} ({gb / ms['_plain'] * 1e3:.0f} GB/s) "
-                  f"vs copy_ {ms['_copy']:.4f} "
-                  f"({gb / ms['_copy'] * 1e3:.0f} GB/s) vs the permuted copy "
-                  f"{ms['_library']:.4f} "
-                  f"({gb / ms['_library'] * 1e3:.0f} GB/s); on {card}")
-            del x, dst
+                times[key + k] += v
     for entry in ("s2d", "d2s"):
         print(f"[relayout] b128 sum of the three {entry} shapes (ms): kernel "
               f"{times[entry]:.4f} vs plain {times[entry + '_plain']:.4f} vs "
               f"copy_ {times[entry + '_copy']:.4f} vs the permuted copy "
               f"{times[entry + '_library']:.4f}")
+    bound = relayout_bounds(RELAYOUT_PHASE_PATH.values())["d2s"][0]
+    print(f"[relayout] b128 sum of the phase path's five d2s shapes (ms): "
+          f"kernel {times['phase_d2s']:.4f}, "
+          f"{100 * bound / times['phase_d2s']:.1f}% of its {bound:.4f} ms "
+          f"bytes bound, vs plain {times['phase_d2s_plain']:.4f} vs copy_ "
+          f"{times['phase_d2s_copy']:.4f} vs the permuted copy "
+          f"{times['phase_d2s_library']:.4f}; on {card}")
     return errs, times
 
 
@@ -1393,7 +1458,8 @@ INIT_LAUNCHES: dict = {}
 
 
 def reset_launches():
-    """Every launch count, and the conv wrappers' padded copies, to 0."""
+    """Every launch count, the conv wrappers' padded copies and the
+    relayout wrappers' unaligned launches, to 0."""
     from sg2im_tpu_torch.ops import layout_kernel as lk
 
     INIT_LAUNCHES.clear()
@@ -1402,15 +1468,19 @@ def reset_launches():
         wrapper.launches = 0
         if hasattr(wrapper, "padded_copies"):
             wrapper.padded_copies = 0
+        if hasattr(wrapper, "unaligned_launches"):
+            wrapper.unaligned_launches = 0
 
 
 def check_no_padded_copies(what):
-    """Fail if a conv on a path took the wrapper's zero-padded input copy:
-    every path shape suits the kernel's tensor map as it is."""
+    """Fail if a conv on a path took the wrapper's zero-padded input copy
+    (every path shape suits the kernel's tensor map as it is), or a
+    relayout the units route."""
     for name, wrapper in kernel_wrappers().items():
         if getattr(wrapper, "padded_copies", 0):
             fail(f"{what}: {name} padded its input "
                  f"{wrapper.padded_copies} times")
+    check_relayout_routes(what)
 
 
 def read_launches() -> dict:
@@ -1622,6 +1692,7 @@ def phase_vg128(torch, card, launches):
         for name in ("layout_compose_boxes",) + needs:
             if path[name] == 0:
                 fail(f"the {mode} path never launched {name}")
+        check_relayout_routes(f"the vg128 {mode} requests")
         engines[mode] = engine
 
     # The turbo path: calibrate, then requests, counting kernel launches.
@@ -2505,6 +2576,7 @@ def phase_train(torch, card, launches):
             if min(*fwd.values(), *bwd.values()) <= 0:
                 fail(f"packed training did not launch both K3 entries "
                      f"forward and backward: {line}")
+            check_relayout_routes(f"train {name}")
         else:
             numbers[name] = (ms, N * 1e3 / ms, peak)
             line += (f"; median {ms:.3f} ms/step over {timed} steps after "
@@ -3333,6 +3405,7 @@ def phase_mesh(torch, card, launches):
             if name == "bf16/packed" and min(path["relayout_s2d"],
                                               path["relayout_d2s"]) == 0:
                 fail(f"{line}: packed mode without both K3 entries")
+            check_relayout_routes(line)
             if name == "f32" and err > MESH_F32_BAR:
                 fail(line)
             if name.startswith("bf16") and u8 > 1:

@@ -11,30 +11,43 @@
 //
 // What bounds it on the card: bytes.  The relayout does no arithmetic; it
 // reads every byte once and writes it once, so its ceiling is the card's
-// copy rate (a copy_ of the same bytes is measured beside it).  The design:
-//   * the two horizontal phases b = 0, 1 of one fine row pair a sit side by
-//     side on both sides: fine pixels (2i + a, 2j) and (2i + a, 2j + 1) are
-//     2C consecutive elements of fine row 2i + a, and packed channels
-//     [2aC, 2aC + 2C) of packed pixel (i, j).  So the kernel copies runs of
-//     2C * elsize bytes, in units of 16, 8, 4, 2 or 1 bytes: the largest
-//     unit that divides the run and both pointers' alignment.  bf16 with
-//     C % 4 == 0 and f32 with C % 2 == 0 move as 16-byte vector loads and
-//     stores; the CRN head's d2s (C = 3 in f32, a 24-byte run) moves in
-//     8-byte units;
-//   * one block per packed row (n, i).  The packed row and the two fine rows
-//     2i and 2i + 1 hold the same 2 * Rw runs and start at the same offset,
-//     (n * R + i) * 4 * Rw * C elements.  Threads walk the OUTPUT row in
-//     order, so neighbouring threads store to neighbouring addresses; the
-//     reads are gathered runs of the same length;
-//   * each thread makes kUnroll loads through the read-only path before its
-//     kUnroll stores, to keep more bytes in flight;
-//   * row offsets are 64-bit (the 128x128 CRN level at batch 128 is 671 M
-//     bf16 elements); offsets inside a row are 32-bit, and the wrapper checks
-//     that 4 * Rw * C * elsize < 2^31.
-// This is the simple version: no TMA bulk copies.
+// copy rate (a copy_ of the same bytes is measured beside it).  Packed row
+// (n, i) and fine rows 2i and 2i + 1 hold the same S = 4 Rw C elsize bytes
+// from the same offset (n R + i) S (a segment), so the relayout permutes
+// runs of L = 2 C elsize bytes (the two horizontal phases b) inside
+// contiguous segments: fine order (a, j), packed order (j, a).
 //
-// Plain C interface (loaded with ctypes): each entry returns
-// cudaGetLastError() after its launch, on the caller's stream.
+// The first version ran one 256-thread block a packed row, in units of the
+// largest size dividing the run, with a runtime division a unit.  On the
+// device it already came within 2-5% of copy_ at the CRN's wide shapes and
+// matched it at the head's f32 d2s (C 3, 24-byte runs); where it lost to
+// one PyTorch copy (the head, 0.0379 against 0.0230 ms a call) it lost on
+// the host, whose enqueue of a launch took longer than the kernel.  Rows
+// that are no multiple of a block's trip left trips part empty (s2d at the
+// 32x32 and 64x64 levels: 1.25 and 2.5 trips a row).  The design now:
+//   * a flat walk of the output in units of the largest size (16 bytes at
+//     every path shape but the head's 8) that divides the run and both
+//     pointers' alignment; each block takes `span` consecutive units, one
+//     full trip of its threads, wherever in a segment it starts (one 64-bit
+//     division a block), so no trip runs part empty;
+//   * each thread makes kUnroll gathered loads through the read-only path,
+//     then kUnroll stores to neighbouring addresses;
+//   * the segment and the run are divided by the plan's multiply-high
+//     constants (ops/relayout.py::relayout_plan), not a runtime division;
+//   * the host passes the cached plan as one struct pointer: the wrapper's
+//     part of a launch is most of a small shape's time.
+// Measured and withdrawn (tools/relayout_ab.py, PERF.md): a persistent ring
+// of tiles in shared memory filled by 1-D bulk async copies (cp.async.bulk
+// on mbarriers), stored from shared memory by the threads, or gathered a
+// run a bulk copy and stored by bulk copies, ran 2-4% slower than this walk
+// on the device at the wide shapes and 8-10% slower at the head; spans of
+// two and four trips ran slower than one.
+// Offsets are 64-bit to a block's first segment and 32-bit from there (the
+// plan keeps 2 S / unit + span < 2^31).
+//
+// Plain C interface (loaded with ctypes): each entry takes the plan as a
+// struct Plan pointer and returns cudaGetLastError() after its launch, on
+// the caller's stream.
 
 #include <cuda_runtime.h>
 
@@ -45,107 +58,143 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
 
-// Offset, in units, inside the block's row of the unit that output unit o
-// reads.  Cu units make one run: the 2C elements of a row pair a at
-// packed column j.
+// The launch: ops/relayout.py's RelayoutPlan, field for field.
+struct Plan {
+  int32_t route;  // 0 direct (16-byte units), 1 units (off 16-byte alignment)
+  int32_t unit;   // bytes a unit
+  int32_t segs;   // N R
+  int32_t Rw;
+  int32_t run;    // L bytes
+  int32_t seg;    // S bytes
+  int32_t span;   // units a block
+  int32_t grid;
+  uint32_t run_mul;  // L / unit and S / unit as multiply-highs
+  int32_t run_shift;
+  uint32_t seg_mul;
+  int32_t seg_shift;
+};
+
+// q / d for 0 <= q < 2^31 by the plan's (mul, shift) (magic_divisor).
+__device__ __forceinline__ int divide(int q, uint32_t mul, int shift) {
+  return (int)((__umulhi((uint32_t)q, mul) + (uint32_t)q) >> shift);
+}
+
+struct Args {
+  int64_t total;  // units of the tensor
+  int span;       // units a block
+  int Rw;
+  int Lu, Su;     // units of a run and of a segment
+  uint32_t run_mul, seg_mul;
+  int run_shift, seg_shift;
+};
+
+// Offset, in units from the block's first segment, of the unit that output
+// unit o (counted from that segment's start) reads: segment o / Su, run
+// q, unit cu of the run.
 template <bool kToDepth>
-__device__ __forceinline__ int source_offset(int o, int Rw, int Cu) {
+__device__ __forceinline__ int source(const Args& d, int o) {
+  const int seg = divide(o, d.seg_mul, d.seg_shift);
+  const int r = o - seg * d.Su;
+  const int row = d.Rw * d.Lu;
   if (kToDepth) {
-    // Output: packed row, o = (2j + a) * Cu + cu.
-    // Input: fine rows 2i + a, o_in = a * Rw * Cu + j * Cu + cu.
-    const int q = o / Cu;
-    const int cu = o - q * Cu;
-    return (q & 1) * (Rw * Cu) + (q >> 1) * Cu + cu;
+    // Output: packed, r = (2j + a) Lu + cu; input: fine, a Rw Lu + j Lu + cu.
+    const int q = divide(r, d.run_mul, d.run_shift);
+    return seg * d.Su + (q & 1) * row + (q >> 1) * d.Lu + (r - q * d.Lu);
   }
-  // Output: fine rows 2i + a, o = a * Rw * Cu + j * Cu + cu.
-  // Input: packed row, o_in = (2j + a) * Cu + cu.
-  const int fine_row = Rw * Cu;
-  const int a = o >= fine_row;
-  const int rem = o - a * fine_row;
-  const int j = rem / Cu;
-  return (2 * j + a) * Cu + (rem - j * Cu);
+  // Output: fine, r = a Rw Lu + j Lu + cu; input: packed, (2j + a) Lu + cu.
+  const int a = r >= row;
+  const int rem = r - a * row;
+  const int j = divide(rem, d.run_mul, d.run_shift);
+  return seg * d.Su + (2 * j + a) * d.Lu + (rem - j * d.Lu);
 }
 
 template <typename T, bool kToDepth>
 __global__ void __launch_bounds__(kThreads)
-    relayout_kernel(const T* __restrict__ in, T* __restrict__ out, int Rw,
-                    int Cu) {
-  const int row_units = 2 * Rw * Cu;
-  const int64_t base = (int64_t)blockIdx.x * row_units;
-  const T* src = in + base;
+    relayout_kernel(const T* __restrict__ in, T* __restrict__ out,
+                    const Args d) {
+  const int64_t base = (int64_t)blockIdx.x * d.span;
+  const int span = (int)min((int64_t)d.span, d.total - base);
+  // The block may start inside a segment: one 64-bit division a block.
+  const int64_t seg0 = base / d.Su;
+  const int off = (int)(base - seg0 * d.Su);
+  const T* src = in + seg0 * d.Su;
   T* dst = out + base;
-  for (int o0 = threadIdx.x; o0 < row_units; o0 += kThreads * kUnroll) {
+  for (int o0 = threadIdx.x; o0 < span; o0 += kThreads * kUnroll) {
     T v[kUnroll];
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
       const int o = o0 + k * kThreads;
-      if (o < row_units)
-        v[k] = __ldg(src + source_offset<kToDepth>(o, Rw, Cu));
+      if (o < span) v[k] = __ldg(src + source<kToDepth>(d, off + o));
     }
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
       const int o = o0 + k * kThreads;
-      if (o < row_units) dst[o] = v[k];
+      if (o < span) dst[o] = v[k];
     }
   }
 }
 
+template <typename T, bool kToDepth>
+int launch_as(const void* in, void* out, const Args& d, int grid,
+              cudaStream_t s) {
+  relayout_kernel<T, kToDepth><<<grid, kThreads, 0, s>>>((const T*)in,
+                                                         (T*)out, d);
+  return (int)cudaGetLastError();
+}
+
 template <bool kToDepth>
-int launch(const void* in, void* out, int N, int R, int Rw, int C, int elsize,
-           void* stream) {
-  if (N < 1 || R < 1 || Rw < 1 || C < 1 || elsize < 1)
+int launch(const void* in, void* out, const Plan* p, void* stream) {
+  if (!p) return (int)cudaErrorInvalidValue;
+  const int unit = p->unit;
+  if ((p->route != 0 && p->route != 1) || unit < 1 || unit > 16 ||
+      (unit & (unit - 1)) || p->segs < 1 || p->Rw < 1 || p->run < 1 ||
+      p->run % unit || p->seg != 2 * (int64_t)p->Rw * p->run ||
+      (((uintptr_t)in | (uintptr_t)out) % unit) || p->span < 1)
     return (int)cudaErrorInvalidValue;
-  const int64_t run = 2 * (int64_t)C * elsize;
-  const uintptr_t align = (uintptr_t)in | (uintptr_t)out;
-  int unit = 1;
-  for (int u = 16; u > 1; u >>= 1) {
-    if (run % u == 0 && align % u == 0) {
-      unit = u;
-      break;
-    }
-  }
-  const int Cu = (int)(run / unit);
-  const dim3 grid((unsigned)(N * R));  // the wrapper checks N * R < 2^31
+  Args d;
+  d.Lu = p->run / unit;
+  d.Su = p->seg / unit;
+  d.total = (int64_t)p->segs * d.Su;
+  d.span = p->span;
+  d.Rw = p->Rw;
+  d.run_mul = p->run_mul;
+  d.seg_mul = p->seg_mul;
+  d.run_shift = p->run_shift;
+  d.seg_shift = p->seg_shift;
+  // Offsets from a block's first segment stay under 2 Su + span.
+  if (2 * (int64_t)d.Su + d.span > 0x7fffffff ||
+      p->grid != (d.total + d.span - 1) / d.span)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (unit) {
     case 16:
-      relayout_kernel<uint4, kToDepth><<<grid, kThreads, 0, s>>>(
-          (const uint4*)in, (uint4*)out, Rw, Cu);
-      break;
+      return launch_as<uint4, kToDepth>(in, out, d, p->grid, s);
     case 8:
-      relayout_kernel<uint2, kToDepth><<<grid, kThreads, 0, s>>>(
-          (const uint2*)in, (uint2*)out, Rw, Cu);
-      break;
+      return launch_as<uint2, kToDepth>(in, out, d, p->grid, s);
     case 4:
-      relayout_kernel<uint32_t, kToDepth><<<grid, kThreads, 0, s>>>(
-          (const uint32_t*)in, (uint32_t*)out, Rw, Cu);
-      break;
+      return launch_as<uint32_t, kToDepth>(in, out, d, p->grid, s);
     case 2:
-      relayout_kernel<uint16_t, kToDepth><<<grid, kThreads, 0, s>>>(
-          (const uint16_t*)in, (uint16_t*)out, Rw, Cu);
-      break;
+      return launch_as<uint16_t, kToDepth>(in, out, d, p->grid, s);
     default:
-      relayout_kernel<uint8_t, kToDepth><<<grid, kThreads, 0, s>>>(
-          (const uint8_t*)in, (uint8_t*)out, Rw, Cu);
+      return launch_as<uint8_t, kToDepth>(in, out, d, p->grid, s);
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// K3 s2d: fine x (N, 2R, 2Rw, C) -> packed out (N, R, Rw, 4C), elements of
-// elsize bytes.
-int sg2im_space_to_depth(const void* x, void* out, int N, int R, int Rw,
-                         int C, int elsize, void* stream) {
-  return launch<true>(x, out, N, R, Rw, C, elsize, stream);
+// K3 s2d: fine x (N, 2R, 2Rw, C) -> packed out (N, R, Rw, 4C), by the plan
+// of ops/relayout.py::relayout_plan (a struct Plan).
+int sg2im_space_to_depth(const void* x, void* out, const void* plan,
+                         void* stream) {
+  return launch<true>(x, out, (const Plan*)plan, stream);
 }
 
 // K3 d2s: packed x (N, R, Rw, 4C) -> fine out (N, 2R, 2Rw, C).
-int sg2im_depth_to_space(const void* x, void* out, int N, int R, int Rw,
-                         int C, int elsize, void* stream) {
-  return launch<false>(x, out, N, R, Rw, C, elsize, stream);
+int sg2im_depth_to_space(const void* x, void* out, const void* plan,
+                         void* stream) {
+  return launch<false>(x, out, (const Plan*)plan, stream);
 }
 
 }  // extern "C"

@@ -49,9 +49,10 @@ SOURCES = {
         "sg2im_conv3x3_bf16": [_PTR] * 5 + [_INT] * 10 + [_PTR],
         "sg2im_conv3x3_s8": [_PTR] * 4 + [_INT] * 8 + [_PTR],
     },
+    # x, out, the plan (ops/relayout.PlanStruct), stream.
     "relayout.cu": {
-        "sg2im_space_to_depth": [_PTR] * 2 + [_INT] * 5 + [_PTR],
-        "sg2im_depth_to_space": [_PTR] * 2 + [_INT] * 5 + [_PTR],
+        "sg2im_space_to_depth": [_PTR] * 4,
+        "sg2im_depth_to_space": [_PTR] * 4,
     },
     "threefry.cu": {
         "sg2im_threefry_normal": [_PTR, _PTR, _U32, _U32, _U64] + [_INT] * 10

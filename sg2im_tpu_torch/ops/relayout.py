@@ -20,7 +20,19 @@ states the layout).  For a CPU tensor it computes the plain version
 (``space_to_depth_ref``, ``depth_to_space_ref``), a reshape and a permute
 of the NHWC view, which returns channels_last too.  The kernels are a byte
 copy, so every dtype is taken.  ``<wrapper>.launches`` counts kernel
-launches and nothing else.
+launches and nothing else; ``<wrapper>.unaligned_launches`` counts those
+among them that took the units route (inputs off 16-byte alignment).
+
+The launch follows :func:`relayout_plan`: packed row (n, i) and fine rows
+2i and 2i + 1 hold the same S = 4 Rw C elsize bytes at the same offset on
+both sides (a segment), so the relayout permutes runs of 2 C elsize bytes
+inside contiguous segments, and the kernel walks the output in blocks of
+one full trip of units each.  The direct route moves 16-byte units; the
+units route, the same walk in smaller units, takes the inputs whose
+pointers or segments are not 16-byte aligned (no shape of the CRN's
+paths).  The host's part of a launch is kept short (a cached plan passed
+as one struct pointer, the raw stream): at the smaller path shapes it
+takes longer than the kernel.
 
 Gradients: each wrapper is a ``torch.autograd.Function`` whose backward is
 the other entry, depth_to_space being the adjoint (and inverse) of
@@ -33,9 +45,88 @@ gradient too.  A call that needs no gradient skips the Function.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
+from sg2im_tpu_torch.ops.prng_kernel import magic_divisor
+
 _MAX_INT = 2 ** 31 - 1
+
+ROUTE_DIRECT = 0  # the flat walk in 16-byte units
+ROUTE_UNITS = 1   # the same walk in smaller units: the unaligned route
+ROUTES = ("direct", "units")
+THREADS = 256  # the kernel's block
+UNROLL = 4     # units a thread a trip
+SPAN = THREADS * UNROLL  # units a block: one trip
+
+
+class RelayoutPlan(NamedTuple):
+    """How one relayout launches: ``grid`` blocks of ``THREADS`` threads,
+    each ``span`` consecutive output units of ``unit`` bytes (the largest
+    that divides the run and both pointers' alignment), wherever in a
+    segment it starts.  ``run`` is L = 2 C elsize bytes, two horizontal
+    phases, and ``seg`` S = 2 Rw L bytes, a segment; the (mul, shift)
+    pairs divide by L / unit and S / unit (``magic_divisor``).  The route
+    is ``ROUTE_UNITS`` where the unit is under 16 bytes for the pointers'
+    sake or because S is no multiple of 16 (no path shape)."""
+    route: int
+    unit: int
+    segs: int
+    Rw: int
+    run: int
+    seg: int
+    span: int
+    grid: int
+    run_mul: int
+    run_shift: int
+    seg_mul: int
+    seg_shift: int
+
+
+class PlanStruct(ctypes.Structure):
+    """A plan as the C entries read it (``struct Plan`` of
+    ``csrc/relayout.cu``)."""
+    _fields_ = [(name, ctypes.c_uint32 if name.endswith("_mul")
+                 else ctypes.c_int32) for name in RelayoutPlan._fields]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def relayout_plan(N, R, Rw, C, elsize, in_ptr=0, out_ptr=0) -> RelayoutPlan:
+    """The launch of K3 for fine (N, 2R, 2Rw, C) <-> packed (N, R, Rw,
+    4C) NHWC of ``elsize``-byte elements at the given data pointers (only
+    their alignment to 16 bytes counts)."""
+    return _plan(N, R, Rw, C, elsize, (in_ptr | out_ptr) % 16)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(N, R, Rw, C, elsize, misalign) -> RelayoutPlan:
+    L = 2 * C * elsize
+    S = 2 * Rw * L
+    unit = next(u for u in (16, 8, 4, 2, 1)
+                if L % u == 0 and misalign % u == 0)
+    Lu, Su = L // unit, S // unit
+    grid = _cdiv(N * R * Su, SPAN)
+    if grid > _MAX_INT or 2 * Su + SPAN > _MAX_INT or N * R > _MAX_INT:
+        raise ValueError(f"relayout of {N * R} segments of {S} bytes "
+                         f"exceeds the kernel's grid")
+    route = ROUTE_UNITS if misalign or S % 16 else ROUTE_DIRECT
+    return RelayoutPlan(route, unit, N * R, Rw, L, S, SPAN, grid,
+                        *magic_divisor(Lu), *magic_divisor(Su))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_struct(N, R, Rw, C, elsize, misalign):
+    """(plan, its PlanStruct, the struct's address): the cache keeps the
+    struct alive."""
+    plan = _plan(N, R, Rw, C, elsize, misalign)
+    struct = PlanStruct(*plan)
+    return plan, struct, ctypes.addressof(struct)
 
 
 def space_to_depth_ref(x) -> torch.Tensor:
@@ -68,19 +159,44 @@ def _check_kernel_input(x, N, R, Rw, C):
         raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's grid")
 
 
-def _launch(entry: str, x, out_shape, N, R, Rw, C) -> torch.Tensor:
+# The current device, and the current stream as a raw CUDA handle,
+# without a Python object made a launch; torch.cuda's where a build lacks
+# the raw calls.
+_current_device = getattr(torch._C, "_cuda_getDevice",
+                          torch.cuda.current_device)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(index) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _launch(entry: str, wrapper, x, out_shape, N, R, Rw, C) -> torch.Tensor:
+    """One launch by the plan.  The host's part is kept short (a cached
+    plan as one struct pointer, the raw stream, the output allocated
+    channels_last): at the smaller path shapes it takes longer than the
+    kernel."""
     from sg2im_tpu_torch.ops._build import load_library
 
-    lib = load_library()
-    N_, C_, H_, W_ = out_shape
-    out = torch.empty((N_, H_, W_, C_), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = getattr(lib, entry)(
-            x.data_ptr(), out.data_ptr(), N, R, Rw, C, x.element_size(),
-            torch.cuda.current_stream().cuda_stream)
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    xp, op = x.data_ptr(), out.data_ptr()
+    plan, _, addr = _plan_struct(N, R, Rw, C, x.element_size(),
+                                 (xp | op) % 16)
+    index = x.get_device()
+    fn = getattr(load_library(), entry)
+    if index == _current_device():
+        rc = fn(xp, op, addr, _stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(xp, op, addr, _stream(index))
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
-    return out.permute(0, 3, 1, 2)
+    wrapper.launches += 1
+    wrapper.unaligned_launches += plan.route == ROUTE_UNITS
+    return out
 
 
 def _s2d(x) -> torch.Tensor:
@@ -89,9 +205,8 @@ def _s2d(x) -> torch.Tensor:
     N, C, H, W = x.shape
     R, Rw = H // 2, W // 2
     _check_kernel_input(x, N, R, Rw, C)
-    out = _launch("sg2im_space_to_depth", x, (N, 4 * C, R, Rw), N, R, Rw, C)
-    space_to_depth.launches += 1
-    return out
+    return _launch("sg2im_space_to_depth", space_to_depth, x,
+                   (N, 4 * C, R, Rw), N, R, Rw, C)
 
 
 def _d2s(x) -> torch.Tensor:
@@ -100,10 +215,8 @@ def _d2s(x) -> torch.Tensor:
     N, C4, R, Rw = x.shape
     C = C4 // 4
     _check_kernel_input(x, N, R, Rw, C)
-    out = _launch("sg2im_depth_to_space", x, (N, C, 2 * R, 2 * Rw), N, R, Rw,
-                  C)
-    depth_to_space.launches += 1
-    return out
+    return _launch("sg2im_depth_to_space", depth_to_space, x,
+                   (N, C, 2 * R, 2 * Rw), N, R, Rw, C)
 
 
 def _grad_nhwc(g, wrapper) -> torch.Tensor:
@@ -165,5 +278,7 @@ def depth_to_space(x) -> torch.Tensor:
 
 space_to_depth.launches = 0
 depth_to_space.launches = 0
+space_to_depth.unaligned_launches = 0
+depth_to_space.unaligned_launches = 0
 space_to_depth.grad_copies = 0
 depth_to_space.grad_copies = 0

@@ -215,11 +215,15 @@ RELAYOUT_CASES = {
 
 @pytest.mark.parametrize("name", sorted(RELAYOUT_CASES))
 def test_relayout_entries_equal_plain_version(card, name):
-    wrapper = chip_smoke.relayout_entry(RELAYOUT_CASES[name][0])[0]
-    before = wrapper.launches
+    entry, shape, dtype, offset = RELAYOUT_CASES[name]
+    wrapper = chip_smoke.relayout_entry(entry)[0]
+    before = (wrapper.launches, wrapper.unaligned_launches)
     assert chip_smoke.check_relayout_case(torch, name,
                                           *RELAYOUT_CASES[name]) == 0.0
-    assert wrapper.launches == before + 1
+    # The units route ran where the plan names it: off 16-byte alignment.
+    route = chip_smoke.relayout_route(entry, shape, dtype, offset)[0]
+    assert (wrapper.launches, wrapper.unaligned_launches) == (
+        before[0] + 1, before[1] + (route == "units"))
 
 
 def test_relayout_wrappers_reject_what_the_kernel_does_not_take(card):

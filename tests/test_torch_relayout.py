@@ -24,7 +24,9 @@ from sg2im_tpu_torch.ops import relayout as rl
 CASES = {"16x16 C8 f32": ((2, 16, 16, 8), "float32"),
          "64x32 C5 f32": ((1, 64, 32, 5), "float32"),
          "8x8 C160 f32": ((2, 8, 8, 160), "float32"),
-         "32x32 C16 bf16": ((2, 32, 32, 16), "bfloat16")}
+         "32x32 C16 bf16": ((2, 32, 32, 16), "bfloat16"),
+         # The packed CRN head's channel count: d2s of NHWC (1, 16, 16, 12).
+         "32x32 C3 f32": ((1, 32, 32, 3), "float32")}
 
 
 def _both(shape, dtype, seed):
