@@ -72,6 +72,7 @@ import numpy as np
 
 from sg2im_tpu_torch.models.sg2im import CRN_MODES
 from sg2im_tpu_torch.utils.flags import bool_flag, int_tuple
+from sg2im_tpu_torch.utils.timing import record_span, spans_on
 
 
 def build_parser():
@@ -370,7 +371,8 @@ class _LatencyHistogram:
 class _Request:
     """One in-flight /generate request inside the batcher."""
 
-    __slots__ = ("sgs", "noise_mode", "seed", "done", "result", "error")
+    __slots__ = ("sgs", "noise_mode", "seed", "done", "result", "error",
+                 "queued")
 
     def __init__(self, sgs, noise_mode, seed):
         self.sgs = sgs
@@ -379,6 +381,7 @@ class _Request:
         self.done = threading.Event()
         self.result = None  # (imgs ndarray, boxes ndarray)
         self.error = None
+        self.queued = None  # time.time_ns() of its queueing, spans on
 
 
 def _boxes(out) -> np.ndarray:
@@ -401,6 +404,11 @@ class _Batcher:
     http.server handles each request in a new thread, where a forward
     would build every convolution's plan again (about 0.1 s per request at
     vg128 on an H100).
+
+    While spans are on (``utils.timing``), each request records
+    ``sg2im.serve.queue`` from its arrival to the drain that takes it
+    (without a window, to the device lock won); the engine's generate
+    span that serves it is the first to start after that end.
     """
 
     def __init__(self, engine, max_graphs: int, window_ms: float):
@@ -422,17 +430,18 @@ class _Batcher:
         """Blocks until served.  Returns (imgs, boxes); raises the
         request's own error (batchmates are unaffected)."""
         req = _Request(sgs, noise_mode, seed)
+        if spans_on():
+            req.queued = time.time_ns()
         if self.window_s <= 0:
             with self.device_lock:
-                self.worker.submit(self._run, [req]).result()
+                self._serve([req])
         else:
             with self.queue_lock:
                 self.pending.append(req)
             with self.device_lock:
                 if not req.done.is_set():  # we lead
                     time.sleep(self.window_s)
-                    self.worker.submit(
-                        self._run, self._drain(must_include=req)).result()
+                    self._serve(self._drain(must_include=req))
         if req.error is not None:
             raise req.error
         return req.result
@@ -453,6 +462,16 @@ class _Batcher:
                     rest.append(r)
             self.pending = rest
             return take
+
+    def _serve(self, reqs):
+        """One call over ``reqs`` on the worker, the device lock held;
+        ends the requests' queue spans."""
+        if spans_on():
+            now = time.time_ns()
+            for r in reqs:
+                if r.queued is not None:
+                    record_span("sg2im.serve.queue", r.queued, now)
+        self.worker.submit(self._run, reqs).result()
 
     def _merged_noise(self, reqs):
         """Explicit (n, H, W, D) float32 noise for the merged batch, on the

@@ -74,6 +74,7 @@ from sg2im_tpu_torch.data import (
 from sg2im_tpu_torch.models.sg2im import Sg2ImGenerator
 from sg2im_tpu_torch.ops.prng import prng_key
 from sg2im_tpu_torch.ops.prng_kernel import threefry_normal
+from sg2im_tpu_torch.utils.timing import span
 
 NOISE_DTYPES = (torch.float32, torch.bfloat16)
 RBG_REFUSED = (
@@ -514,11 +515,13 @@ class InferenceEngine:
             return torch.as_tensor(np.asarray(a)[rows]).to(device, dtype)
 
         noise = None if layout_noise is None else layout_noise.to(device)
-        with torch.inference_mode(), full_fp32():
-            return model(
-                dev(batch.objs, torch.long), dev(batch.triples, torch.long),
+        args = (dev(batch.objs, torch.long), dev(batch.triples, torch.long),
                 dev(batch.obj_mask, torch.float32),
                 dev(batch.triple_mask, torch.float32), noise)
+        # The span holds the host's issue of the forward alone; the copies
+        # above fall in the engine's own time.
+        with torch.inference_mode(), full_fp32(), span("sg2im.model.forward"):
+            return model(*args)
 
     def _share_scales(self):
         """Give every mesh replica row 0's int8 activation scales."""
@@ -575,19 +578,36 @@ class InferenceEngine:
         fetched as uint8), else (n, H, W, 3) float32 numpy in the
         preprocessed space; ``outputs`` is :meth:`generate_batch`'s dict cut
         to the n real rows.
+
+        While spans are on (``utils.timing``) a call records
+        ``sg2im.engine.generate`` (attrs ``objects``, the real rows'
+        objects with '__image__'; ``obj_slots``, rows x object slots)
+        around ``sg2im.engine.encode`` (encode and pad),
+        ``sg2im.model.forward`` (the forward's issue) and
+        ``sg2im.engine.fetch`` (all after the forward: deprocess's issue,
+        the wait for the card, wherever its first synchronisation falls,
+        and the copy back).
         """
-        if isinstance(scene_graphs, dict):
-            scene_graphs = [scene_graphs]
-        n_real = len(scene_graphs)
-        batch = encode_scene_graphs(scene_graphs, self.vocab,
-                                    align=self.pad_align)
-        n_pad = self.pad_rows(n_real)
-        if n_pad > n_real:
-            batch = batch.pad_rows(n_pad)
-        out = self.generate_batch(batch, noise=noise, seed=seed,
-                                  _calibrate=_calibrate)
-        out = {k: (None if v is None else v[:n_real]) for k, v in out.items()}
-        imgs = out["imgs"].permute(0, 2, 3, 1)
-        imgs = imagenet_deprocess_batch_torch(imgs) if deprocess \
-            else imgs.float()
-        return imgs.contiguous().cpu().numpy(), out
+        with span("sg2im.engine.generate") as s:
+            if isinstance(scene_graphs, dict):
+                scene_graphs = [scene_graphs]
+            n_real = len(scene_graphs)
+            with span("sg2im.engine.encode"):
+                batch = encode_scene_graphs(scene_graphs, self.vocab,
+                                            align=self.pad_align)
+                n_pad = self.pad_rows(n_real)
+                if n_pad > n_real:
+                    batch = batch.pad_rows(n_pad)
+            out = self.generate_batch(batch, noise=noise, seed=seed,
+                                      _calibrate=_calibrate)
+            with span("sg2im.engine.fetch"):
+                out = {k: (None if v is None else v[:n_real])
+                       for k, v in out.items()}
+                imgs = out["imgs"].permute(0, 2, 3, 1)
+                imgs = imagenet_deprocess_batch_torch(imgs) if deprocess \
+                    else imgs.float()
+                imgs = imgs.contiguous().cpu().numpy()
+            if s:
+                s.attrs.update(objects=int(batch.obj_mask[:n_real].sum()),
+                               obj_slots=batch.objs.size)
+        return imgs, out

@@ -5,15 +5,32 @@
 (``utils.py:63-73``); ``get_device_memory`` reads the caching allocator's
 ``torch.cuda.memory_stats``; ``profile_trace`` writes a ``torch.profiler``
 Chrome trace where the JAX package wrote a ``jax.profiler`` one.
+
+Spans (:func:`span`, :func:`record_span`) time the host's parts of the
+engine and the server's batcher.  They record only while a
+``torch.profiler`` session is active (torch's own flag,
+``torch.autograd.profiler._is_profiler_enabled``, which every session
+sets, whatever its activities): off, a span is one check of that flag.
+On, each span appends a :class:`Span` (name, id, parent id, start and
+end in ns, attrs) to a bounded store in memory, read by
+:func:`recorded_spans`.  Start and end are ``time.time_ns()``, the clock
+that the profiler stamps its host events with (``trace_start_ns()`` plus
+an event's ``time_range``), so spans can be laid against a trace.  They
+stay out of the profiler's own trace: a ``record_function`` range would
+also stand on the device's timeline, over the gaps between kernels.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
 
 
 def _sync():
@@ -140,6 +157,92 @@ def profile_trace(log_dir: str | None, device=None):
     with profile_window(device, strict=False) as window:
         yield window.prof
     window.prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+SPAN_STORE = 65536  # spans kept; the oldest go first
+
+
+class Span(collections.namedtuple(
+        "Span", "name id parent start_ns end_ns attrs")):
+    """One recorded span: ``parent`` is the id of the span open around it
+    on its thread (None at the top), ``attrs`` its counters."""
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+_spans: collections.deque = collections.deque(maxlen=SPAN_STORE)
+_span_ids = itertools.count()
+_open = threading.local()
+
+
+def spans_on() -> bool:
+    """Whether spans record: a ``torch.profiler`` session is active."""
+    return _profiler._is_profiler_enabled
+
+
+_OFF = contextlib.nullcontext()  # what span() returns while spans are off
+
+
+class _On:
+    """An open span: ``attrs`` takes its counters until it ends."""
+
+    __slots__ = ("name", "id", "parent", "start_ns", "attrs")
+
+    def __init__(self, name: str):
+        self.name, self.attrs = name, {}
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.parent = stack[-1] if stack else None
+        self.id = next(_span_ids)
+        stack.append(self.id)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        _open.stack.pop()
+        _spans.append(Span(self.name, self.id, self.parent, self.start_ns,
+                           end, self.attrs))
+        return False
+
+
+def span(name: str):
+    """A span over the block, recorded only while spans are on (see the
+    module docstring).  Yields None when off, else the open span, whose
+    ``attrs`` dict the block may fill::
+
+        with span("sg2im.engine.generate") as s:
+            ...
+            if s:
+                s.attrs["objects"] = n
+    """
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _On(name)
+
+
+def record_span(name: str, start_ns: int, end_ns: int) -> None:
+    """Record a span whose ends were stamped elsewhere (``time.time_ns()``
+    while spans were on), such as a request's wait that starts on one
+    thread and ends on another; a top-level span with no attrs, and only
+    while spans are on."""
+    if _profiler._is_profiler_enabled:
+        _spans.append(Span(name, next(_span_ids), None, start_ns, end_ns,
+                           {}))
+
+
+def recorded_spans() -> list[Span]:
+    """A copy of the store, in the order the spans ended."""
+    return list(_spans)
+
+
+def clear_spans() -> None:
+    _spans.clear()
 
 
 class LossManager:
