@@ -9,8 +9,8 @@ with a non-zero exit code:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, the TF32 flags;
 2. build: nvcc builds csrc/layout_compose.cu, csrc/conv3x3.cu,
-   csrc/relayout.cu and csrc/threefry.cu for sm_90a, one process each,
-   started together;
+   csrc/relayout.cu, csrc/crn_epilogue.cu and csrc/threefry.cu for sm_90a,
+   one process each, started together;
 3. kernels: both entries of the layout-compose kernel against their plain
    PyTorch versions on the card, in f32 and bf16 (flagship shapes, ragged
    cases, degenerate boxes with empty object slots, and for the weights
@@ -19,7 +19,18 @@ with a non-zero exit code:
    group, O 1 and D 20 on ragged tiles), then their time at the flagship
    batch-128 shape (the boxes entry with f32 and with bf16 output, each
    beside its bound) beside the plain versions, one einsum of the weights
-   entry's function and a fill_ of the output's bytes;
+   entry's function and a fill_ of the output's bytes; and E1, the CRN's
+   post-convolution chain (csrc/crn_epilogue.cu), against its plain
+   version, the eager chain, within one bf16 step up to the float32
+   roundings of the BatchNorm's terms (the share bit-equal printed) at
+   the eleven chains of a vg128 b128 forward in bf16 'split'
+   (each stage's conv0 of two addends and its conv1; the head's float32
+   output bit-equal), three addends and channels off 8 a unit; a vg128
+   stage in 'legacy' and in 'phase', and one in 'split' left in NCHW (its
+   parts' copies to channels_last counted), fused against the same stage
+   kept eager; its launches in one generate of each bf16 CRN mode (eleven a
+   forward, none in 'packed'); then the eleven chains timed beside their
+   bytes bound and the eager chain;
 4. conv: both entries of the 3x3 conv kernel (bf16, and the turbo tier's
    int8) against their plain versions on the turbo path's shapes, the
    CRN shapes of the TPU prototype and the edges of the kernel's tile plan
@@ -546,7 +557,253 @@ def phase_kernels(torch, card):
           f"{by} bound, {times['weights'] / times['weights_library']:.2f}x "
           f"the einsum, {times['weights'] / times['fill']:.2f}x the fill_; "
           f"plan {plan_text(plan)}")
+    e1_errs, e1_times = phase_epilogue(torch, card)
+    errs.update(e1_errs)
+    times.update(e1_times)
     return errs, times
+
+
+EPILOGUE_SOURCE = "sg2im_tpu_torch/csrc/crn_epilogue.cu"
+# The vg128 CRN's stages at b128: (channels, side).
+VG128_STAGES = ((1024, 8), (512, 16), (256, 32), (128, 64), (64, 128))
+# E1's cases, name: (addends, N, C, H, W, BatchNorm, float32 output).  The
+# eleven chains of a vg128 b128 forward in bf16 'split' (each stage's conv0
+# of two addends and its conv1, then the head), each checked and timed.
+EPILOGUE_PATH = {
+    **{f"s{i} {conv} C{c} {r}x{r}": (n, 128, c, r, r, True, False)
+       for i, (c, r) in enumerate(VG128_STAGES)
+       for conv, n in (("conv0", 2), ("conv1", 1))},
+    "head C64 128x128 f32-out": (1, 128, 64, 128, 128, False, True),
+}
+# Checked only: three addends (the noise's convolution apart), channels
+# that are no multiple of a unit of 8.
+EPILOGUE_MORE = {
+    "split_noise conv0 C256 32x32 N32": (3, 32, 256, 32, 32, True, False),
+    "ragged C20 9x7 N8": (2, 8, 20, 9, 7, True, False),
+    "ragged head C3 5x6 N2 f32-out": (1, 2, 3, 5, 6, False, True),
+}
+EPILOGUE_SLOPE = 0.2  # vg128's leakyrelu-0.2
+
+
+def bf16_steps(torch, a, b):
+    """Distance of same-typed a and b in steps of their own grid (bf16 or
+    float32 values ordered as integers), elementwise."""
+    def ordered(x):
+        i = (x.contiguous().view(torch.int16).int()
+             if x.dtype == torch.bfloat16
+             else x.contiguous().view(torch.int32).long())
+        top = 0x7FFF if x.dtype == torch.bfloat16 else 0x7FFFFFFF
+        return torch.where(i < 0, -(i & top), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def epilogue_inputs(torch, n, N, C, H, W, bn, seed):
+    """``n`` bf16 addends channels_last and, with ``bn``, an eval
+    BatchNorm's vectors drawn as the benchmark draws them (running means
+    and biases 0.1 z, weights 1 + 0.1 z, variances exp(0.2 z))."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    parts = [(2 * torch.randn(N, C, H, W, device="cuda", generator=g)).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        for _ in range(n)]
+    norm = None
+    if bn:
+        z = torch.randn(4, C, device="cuda", generator=g)
+        norm = (0.1 * z[0], torch.exp(0.2 * z[1]), 1 + 0.1 * z[2],
+                0.1 * z[3])
+    return parts, norm
+
+
+def epilogue_bar(torch, parts, norm):
+    """Elementwise, what two float32 evaluations of the chain's BatchNorm
+    may differ by before their bf16 store: a few float32 roundings of its
+    terms, 2^-20 (|s scale| + |shift|) for the bf16 sum s (|s| without a
+    norm).  The eager chain's terms are cuDNN's, whose NHWC and NCHW
+    kernels differ from each other by as much."""
+    from sg2im_tpu_torch.ops.crn_epilogue import add_parts
+
+    x = add_parts(parts).float()
+    if norm is None:
+        return x.abs() * 2.0 ** -20
+    mean, var, weight, bias = (t[:, None, None] for t in norm)
+    scale = weight * torch.rsqrt(var + 1e-5)
+    return ((x * scale).abs() + (bias - mean * scale).abs()) * 2.0 ** -20
+
+
+def check_epilogue_case(torch, name, n, N, C, H, W, bn, f32, seed=0):
+    """E1 against its plain version (the eager chain) on one case: a bf16
+    output within one bf16 step of it, |got - want| <= 2^-7 |want|, up to
+    the float32 roundings of the BatchNorm's terms (``epilogue_bar``),
+    which near 0 span more than one bf16 step; a float32 output without a
+    norm bit-equal.  -> (max abs error, the largest
+    distance in steps of the output's type, the inputs)."""
+    from sg2im_tpu_torch.ops import crn_epilogue as ce
+
+    parts, norm = epilogue_inputs(torch, n, N, C, H, W, bn, seed)
+    out_dtype = torch.float32 if f32 else torch.bfloat16
+    before = ce.crn_epilogue.launches
+    got = ce.crn_epilogue(parts, EPILOGUE_SLOPE, out_dtype, norm)
+    want = ce.crn_epilogue_ref(parts, EPILOGUE_SLOPE, out_dtype, norm)
+    torch.cuda.synchronize()
+    if ce.crn_epilogue.launches != before + 1:
+        fail(f"E1 {name}: the wrapper did not launch the kernel")
+    if (got.dtype != out_dtype or got.shape != want.shape
+            or not got.is_contiguous(memory_format=torch.channels_last)):
+        fail(f"E1 {name}: {got.dtype} {tuple(got.shape)} out")
+    steps = bf16_steps(torch, got, want)
+    share = 100.0 * (steps == 0).float().mean().item()
+    worst = int(steps.max().item())
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    past = int((steps > 1).sum().item())
+    inside = bool((diff <= want.float().abs() * 2.0 ** -7
+                   + epilogue_bar(torch, parts, norm)).all())
+    print(f"[kernels] E1 {name}: {share:.5f}% bit-equal to the eager chain, "
+          f"{past} of {steps.numel()} values more than one "
+          f"{'float32' if f32 else 'bf16'} step off (at most {worst}), "
+          f"max_abs_err {err:.3e}")
+    if (f32 and not bn and worst) or not inside:
+        fail(f"E1 {name}: off the eager chain by more than one rounding "
+             f"(max_abs_err {err:.3e}, {worst} steps)")
+    return err, worst, (parts, norm, out_dtype)
+
+
+# The CRN stages E1 is checked in, fused against kept eager: (conv0 mode,
+# channels_last); the NCHW stage's parts are copied to channels_last.
+EPILOGUE_STAGES = (("legacy", True), ("phase", True), ("split", False))
+
+
+def check_epilogue_stage(torch, mode, channels_last):
+    """A vg128 stage (C 512 -> 256 at 32x32, b32) in ``mode`` on the card,
+    its chains fused against the same stage kept eager (the kernel's
+    device taken as none): two launches, the outputs within 2^-6 of the
+    largest (conv1 carries conv0's chain's roundings on), the share
+    bit-equal printed.  Left in NCHW (``channels_last`` False), weights and
+    inputs, it still launches E1, and its parts' copies to channels_last
+    are counted; channels_last, nothing is copied."""
+    from sg2im_tpu_torch.nn import crn
+    from sg2im_tpu_torch.ops import crn_epilogue as ce
+
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    g = torch.Generator(device="cuda").manual_seed(5)
+    layout = torch.randn(32, 160, 32, 32, device="cuda", generator=g).to(
+        torch.bfloat16).contiguous(memory_format=fmt)
+    feats = torch.randn(32, 512, 16, 16, device="cuda", generator=g).to(
+        torch.bfloat16).contiguous(memory_format=fmt)
+    torch.manual_seed(5)
+    m = crn.RefinementModule(160, 512, 256, "batch", "leakyrelu-0.2",
+                             conv0_mode=mode).eval()
+    for k in (1, 4):
+        _, vectors = epilogue_inputs(torch, 0, 1, 256, 1, 1, True, k)
+        for buf, v in zip(("running_mean", "running_var", "weight",
+                           "bias"), vectors):
+            getattr(m.net[k], buf).data.copy_(v.cpu())
+    m = m.to("cuda", memory_format=fmt)
+    before = ce.crn_epilogue.launches, ce.crn_epilogue.layout_copies
+    got = m(layout, feats, torch.bfloat16)
+    launched = ce.crn_epilogue.launches - before[0]
+    copies = ce.crn_epilogue.layout_copies - before[1]
+    device, crn.EPILOGUE_DEVICE = crn.EPILOGUE_DEVICE, None
+    try:
+        want = m(layout, feats, torch.bfloat16)
+    finally:
+        crn.EPILOGUE_DEVICE = device
+    steps = bf16_steps(torch, got, want)
+    share = 100.0 * (steps == 0).float().mean().item()
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    name = f"'{mode}'" + ("" if channels_last else " NCHW")
+    print(f"[kernels] E1 in a {name} stage (b32 C512 -> 256 at 32x32): "
+          f"{launched} launches, {copies} parts copied to channels_last, "
+          f"{share:.5f}% bit-equal to the eager stage, max_abs_err "
+          f"{err:.3e} of max|out| {top:.3e}")
+    if (launched != 2 or err > top * 2.0 ** -6
+            or (copies == 0) != channels_last):
+        fail(f"E1 in a {name} stage: {launched} launches, {copies} copies, "
+             f"max_abs_err {err:.3e}")
+
+
+def check_epilogue_stages(torch):
+    """:func:`check_epilogue_stage` at each of EPILOGUE_STAGES."""
+    for mode, channels_last in EPILOGUE_STAGES:
+        check_epilogue_stage(torch, mode, channels_last)
+
+
+def check_epilogue_generate(torch):
+    """One generate of 2 vg128 graphs in each bf16 CRN mode launches E1
+    eleven times a forward, and 'packed' never."""
+    from sg2im_tpu_torch.inference import InferenceEngine
+    from sg2im_tpu_torch.ops import crn_epilogue as ce
+
+    vocab, kwargs = vg128_config()
+    state = vg128_state(torch)
+    graphs = random_graphs(vocab, 2, np.random.RandomState(3))
+    counts = {}
+    for mode in ("split", "legacy", "phase", "split_noise", "packed"):
+        engine = InferenceEngine(vocab, kwargs, state, device="cuda",
+                                 compute_dtype=torch.bfloat16,
+                                 crn_mode=mode)
+        before = ce.crn_epilogue.launches
+        engine.generate(graphs, seed=1)
+        counts[mode] = ce.crn_epilogue.launches - before
+        del engine
+    print(f"[kernels] E1 launches in one generate of 2 vg128 graphs, bf16: "
+          f"{counts}")
+    want = {m: 0 if m == "packed" else 11 for m in counts}
+    if counts != want:
+        fail(f"E1 launched {counts} in one generate, not {want}")
+
+
+def phase_epilogue(torch, card):
+    """E1, the CRN's post-convolution chain, within phase_kernels: every
+    case against the eager chain, two CRN modes' stages, the launches of a
+    generate in each mode; then the eleven vg128 b128 chains timed beside
+    their bytes bound and the eager chain.  -> ({max steps}, {times})."""
+    from sg2im_tpu_torch.ops import crn_epilogue as ce
+    from sg2im_tpu_torch.utils.roofline import crn_epilogue_bytes
+
+    times = {"crn_epilogue": 0.0, "crn_epilogue_plain": 0.0,
+             "crn_epilogue_library": 0.0}
+    worst, max_err = 0, 0.0
+    with torch.inference_mode():
+        for i, (name, case) in enumerate({**EPILOGUE_PATH,
+                                          **EPILOGUE_MORE}.items()):
+            err, steps, (parts, norm, out_dtype) = check_epilogue_case(
+                torch, name, *case, seed=i)
+            worst, max_err = max(worst, steps), max(max_err, err)
+            if name not in EPILOGUE_PATH:
+                continue
+
+            def kernel():
+                return ce.crn_epilogue(parts, EPILOGUE_SLOPE, out_dtype, norm)
+
+            def plain():
+                return ce.crn_epilogue_ref(parts, EPILOGUE_SLOPE, out_dtype,
+                                           norm)
+
+            # The plain version is the eager chain op for op: it is timed
+            # twice, in its own turns, as the plain version and as the
+            # library's sequence.
+            for key, fn in (("crn_epilogue", kernel),
+                            ("crn_epilogue_plain", plain),
+                            ("crn_epilogue_library", plain)):
+                times[key] += time_ms(fn)
+            del parts, norm
+        check_epilogue_stages(torch)
+    check_epilogue_generate(torch)
+    nbytes = crn_epilogue_bytes(128, 128, 128,
+                                tuple(c for c, _ in VG128_STAGES), 2)
+    bound = roofline_ms(nbytes, 0, 1.0)[0]
+    times["crn_epilogue_bound"] = bound
+    print(f"[kernels] E1 (the CRN's post-convolution chain) at vg128 b128 "
+          f"bf16 'split', the eleven chains of a forward summed: "
+          f"{times['crn_epilogue']:.4f} ms, "
+          f"{100 * bound / times['crn_epilogue']:.1f}% of its {bound:.4f} ms "
+          f"bytes bound ({nbytes / 1e9:.3f} GB); the eager chain "
+          f"{times['crn_epilogue_plain']:.4f} ms (again "
+          f"{times['crn_epilogue_library']:.4f}); at most {worst} steps off "
+          f"it, max_abs_err {max_err:.3e}; on {card}")
+    return {"crn_epilogue": max_err}, times
 
 
 # name: (N, H, W, Cin, Co).  The turbo path's four int8 convs at vg128 with
@@ -1419,6 +1676,7 @@ def phase_init(torch, card, launches):
 def kernel_wrappers():
     """{kernels-line name: wrapper}; each wrapper counts its launches."""
     from sg2im_tpu_torch.ops import conv_kernel as ck
+    from sg2im_tpu_torch.ops import crn_epilogue as ce
     from sg2im_tpu_torch.ops import layout_kernel as lk
     from sg2im_tpu_torch.ops import prng_kernel as pk
     from sg2im_tpu_torch.ops import relayout as rl
@@ -1431,16 +1689,31 @@ def kernel_wrappers():
             "relayout_d2s": rl.depth_to_space,
             "threefry_normal": pk.threefry_normal,
             "threefry_uniform": pk.threefry_uniform,
-            "threefry_split": pk.threefry_split}
+            "threefry_split": pk.threefry_split,
+            "crn_epilogue": ce.crn_epilogue}
 
 
 # K1's counts in read_launches: all its launches, and those with a bf16
 # output among them.
 K1_COUNTS = ("layout_compose_boxes", "layout_compose_boxes_bf16")
 # A training run's kernels: K1, the threefry draw of its layout noise
-# (once per step, check_model batch, triptych and step_breakdown) and the
-# split of the state's key (once per step).
-TRAIN_COUNTS = K1_COUNTS + ("threefry_normal", "threefry_split")
+# (once per step, check_model batch, triptych and step_breakdown), the
+# split of the state's key (once per step) and, in bf16, E1 in the
+# generator's eval forwards (each checked by train_e1_launches).
+TRAIN_COUNTS = K1_COUNTS + ("threefry_normal", "threefry_split",
+                            "crn_epilogue")
+# The CRN stages of the training runs' generators (the CLI's default
+# refinement_network_dims, 1024 to 64).
+TRAIN_CRN_STAGES = 5
+
+
+def train_e1_launches(bf16, eval_forwards, stages=TRAIN_CRN_STAGES):
+    """E1's launches in a training run: one a chain (2 x ``stages`` + 1 a
+    CRN forward) of each of its ``eval_forwards`` generator forwards in
+    eval mode without a gradient (check_model's batches, the triptychs'
+    three) where it computes in bf16; none in float32, and none in a train
+    step or step_breakdown, whose forwards run in train mode."""
+    return (2 * stages + 1) * eval_forwards if bf16 else 0
 
 
 def cli_draws(steps, checkpoints, prints, sweeps):
@@ -1650,9 +1923,9 @@ def phase_vg128(torch, card, launches):
                              crn_mode="packed"),
                         ("relayout_s2d", "relayout_d2s")),
         "bf16/phase": (dict(compute_dtype=torch.bfloat16, crn_mode="phase"),
-                       ("relayout_d2s",)),
+                       ("relayout_d2s", "crn_epilogue")),
         "bf16/split_noise": (dict(compute_dtype=torch.bfloat16,
-                                  crn_mode="split_noise"), ()),
+                                  crn_mode="split_noise"), ("crn_epilogue",)),
         "f32/packed": (dict(crn_mode="packed"),
                        ("relayout_s2d", "relayout_d2s")),
     }
@@ -1679,6 +1952,10 @@ def phase_vg128(torch, card, launches):
           f"bf16/split: outputs finite; kernel launches {path}")
     if path["layout_compose_boxes"] == 0:
         fail("the serving path never launched the layout-compose kernel")
+    # Three generates of bf16/split: E1 eleven times a forward.
+    if path["crn_epilogue"] != 3 * 11:
+        fail(f"bf16/split launched E1 {path['crn_epilogue']} times in 3 "
+             f"generates, not 11 a forward")
 
     # The further CRN modes, each its own path.
     for mode, (opts, needs) in more_modes.items():
@@ -1692,6 +1969,9 @@ def phase_vg128(torch, card, launches):
         for name in ("layout_compose_boxes",) + needs:
             if path[name] == 0:
                 fail(f"the {mode} path never launched {name}")
+        if "packed" in mode and path["crn_epilogue"]:
+            fail(f"the {mode} path launched E1: 'packed' keeps its chains "
+                 f"eager")
         check_relayout_routes(f"the vg128 {mode} requests")
         engines[mode] = engine
 
@@ -1709,6 +1989,9 @@ def phase_vg128(torch, card, launches):
           f"finite; kernel launches {path}")
     if path["conv3x3_s8"] == 0 or path["layout_compose_boxes"] == 0:
         fail("the turbo path did not launch both of its kernels")
+    if path["crn_epilogue"]:
+        fail("the turbo path launched E1: the int8 tier keeps its chains "
+             "eager")
     engines["turbo bf16/split"] = turbo
 
     # Agreement with the CPU engines on a small input with the same
@@ -2255,7 +2538,7 @@ def phase_serve(torch, card, launches):
         with SmokeServer(common + ["--crn_mode", "split"]) as server:
             add_launches(launches, drive_server(
                 torch, "bf16/split", server, vocab, rng, card,
-                {"layout_compose_boxes": 1}))
+                {"layout_compose_boxes": 1, "crn_epilogue": 11}))
             time_server(torch, server, vocab, rng, card)
             engine = server.engine
             graphs = random_graphs(vocab, 16, rng)
@@ -2295,12 +2578,14 @@ def phase_serve(torch, card, launches):
                                    cal]) as server:
             add_launches(launches, drive_server(
                 torch, "turbo int8 bf16/split", server, vocab, rng, card,
-                {"layout_compose_boxes": 1, "conv3x3_s8": 4},
+                {"layout_compose_boxes": 1, "conv3x3_s8": 4,
+                 "crn_epilogue": 0},
                 coalesced_max=TURBO_COALESCED_U8,
                 coalesced_psnr=TURBO_COALESCED_DB))
         with SmokeServer(common + ["--crn_mode", "phase"]) as server:
             path = drive_server(torch, "bf16/phase", server, vocab, rng, card,
-                                {"layout_compose_boxes": 1})
+                                {"layout_compose_boxes": 1,
+                                 "crn_epilogue": 11})
             add_launches(launches, path)
             if path["relayout_d2s"] == 0:
                 fail("the phase server never launched the relayout d2s")
@@ -2957,9 +3242,9 @@ def phase_train_cli(torch, card, launches, in_memory, work):
                                                         len(val_ds))]
         checkpoints = CLI_STEPS // 20
         prints = CLI_STEPS // 10
-        k1_want = (CLI_STEPS + checkpoints * sum(sweeps)
-                   + 3 * checkpoints * sum(s > 0 for s in sweeps)
-                   + 4 * prints)
+        eval_forwards = (checkpoints * sum(sweeps)
+                         + 3 * checkpoints * sum(s > 0 for s in sweeps))
+        k1_want = CLI_STEPS + eval_forwards + 4 * prints
         tf_want = cli_draws(CLI_STEPS, checkpoints, prints, sweeps)
         with open(os.path.join(tmp, "graphs.json"), "w") as f:
             json.dump([{"objects": ["thing1", "stuff92", "thing18"],
@@ -2990,14 +3275,18 @@ def phase_train_cli(torch, card, launches, in_memory, work):
             k1 = path["layout_compose_boxes"]
             others = {k: v for k, v in path.items()
                       if k not in TRAIN_COUNTS and v}
+            e1_want = train_e1_launches(mode.startswith("bf16"),
+                                        eval_forwards)
             if (k1 != k1_want or others
                     or path["threefry_normal"] != tf_want
-                    or path["threefry_split"] != CLI_STEPS):
+                    or path["threefry_split"] != CLI_STEPS
+                    or path["crn_epilogue"] != e1_want):
                 fail(f"train CLI {mode}: K1 launched {k1} times, expected "
                      f"{k1_want}; threefry {path['threefry_normal']} times, "
                      f"expected {tf_want}; the key's split "
                      f"{path['threefry_split']} times for {CLI_STEPS} "
-                     f"steps; other kernels {others}")
+                     f"steps; E1 {path['crn_epilogue']} times, expected "
+                     f"{e1_want}; other kernels {others}")
             losses = _cli_log(full, "train")
             timing = _cli_log(full, "timing")
             bad = [t for t, r in losses.items()
@@ -3672,12 +3961,14 @@ def phase_jax_checkpoint(torch, card, launches, coco_flags, work, sweeps):
         k1.append(path["layout_compose_boxes"])
         if (k1[-1] < CLI_STEPS - 20 or others
                 or path["threefry_normal"] != tf_want
-                or path["threefry_split"] != CLI_STEPS - 20):
+                or path["threefry_split"] != CLI_STEPS - 20
+                or path["crn_epilogue"]):
             fail(f"the CLI resuming state.msgpack: K1 launched {k1[-1]} "
                  f"times, threefry {path['threefry_normal']} times, "
                  f"expected {tf_want}, the key's split "
                  f"{path['threefry_split']} times for {CLI_STEPS - 20} "
-                 f"steps; other kernels {others}")
+                 f"steps; E1 {path['crn_epilogue']} times in float32; "
+                 f"other kernels {others}")
         losses = _cli_log(out, "train")
         _finite_trace("the CLI resuming state.msgpack", losses)
         if sorted(losses) != list(range(30, CLI_STEPS + 1, 10)):
@@ -3841,14 +4132,19 @@ def phase_proofs(torch, card, launches, work):
         if rc != 0 or not s["decreased"] or not np.isfinite(l1).all():
             fail(f"train_proof {name} exited {rc}: L1 {s['l1_head']:.4f} -> "
                  f"{s['l1_tail']:.4f}, finite {np.isfinite(l1).all()}")
+        # The final check_model's forwards: one a K1 launch.
+        e1_want = train_e1_launches(name.startswith("bf16"),
+                                    PROOF_SWEEP_K1)
         if (k1 != s["iters"] + PROOF_SWEEP_K1 or others(path)
                 or path["threefry_normal"] != s["iters"] + PROOF_SWEEP_TF
-                or path["threefry_split"] != s["iters"]):
+                or path["threefry_split"] != s["iters"]
+                or path["crn_epilogue"] != e1_want):
             fail(f"train_proof {name}: K1 launched {k1} times, expected "
                  f"{s['iters'] + PROOF_SWEEP_K1}; threefry "
                  f"{path['threefry_normal']} times, expected "
                  f"{s['iters'] + PROOF_SWEEP_TF}; the key's split "
                  f"{path['threefry_split']} times for {s['iters']} steps; "
+                 f"E1 {path['crn_epilogue']} times, expected {e1_want}; "
                  f"other kernels {others(path)}")
         if "compared_to" in s:
             c = s["compared_to"]
@@ -3905,10 +4201,12 @@ def phase_proofs(torch, card, launches, work):
     tf = path["threefry_normal"]
     if (k1 != FIDELITY_ITERS + PROOF_SWEEP_K1 + 2 or others(path)
             or tf != FIDELITY_ITERS + PROOF_SWEEP_TF
-            or path["threefry_split"] != FIDELITY_ITERS):
+            or path["threefry_split"] != FIDELITY_ITERS
+            or path["crn_epilogue"]):
         fail(f"trained_fidelity: K1 launched {k1} times, threefry {tf} "
              f"times (expected {FIDELITY_ITERS + PROOF_SWEEP_TF}), the "
-             f"key's split {path['threefry_split']} times; other kernels "
+             f"key's split {path['threefry_split']} times, E1 "
+             f"{path['crn_epilogue']} times in float32; other kernels "
              f"{others(path)}")
 
     rc, wall, _, last = _tool(loader_bench.main, [
@@ -4249,6 +4547,13 @@ def main() -> int:
         ("threefry_split", THREEFRY_SOURCE, "sg2im_tpu/train/step.py:274",
          0.0, tf_times["split"], tf_times["split_plain"],
          tf_times["split_bound"], None),
+        # No TPU kernel: XLA fused the CRN's chain after each convolution
+        # (sg2im_tpu/nn/crn.py's norm and activation) into its consumers.
+        # Timed as the vg128 b128 forward's eleven chains summed.
+        ("crn_epilogue", EPILOGUE_SOURCE, "none (XLA's fusion)",
+         errs["crn_epilogue"], times["crn_epilogue"],
+         times["crn_epilogue_plain"], (times["crn_epilogue_bound"], "bytes"),
+         times["crn_epilogue_library"]),
     ]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,
@@ -4260,7 +4565,7 @@ def main() -> int:
     # The split's bound, its hash, is far below any launch: beside it its
     # device time and the card's least launch by the same route (an empty
     # kernel), on events and on the device.
-    summary["kernels"][-1].update(
+    next(k for k in summary["kernels"] if k["name"] == "threefry_split").update(
         device_ms=tf_times["split_device"],
         launch_floor_ms=tf_times["empty"],
         launch_floor_device_ms=tf_times["empty_device"])

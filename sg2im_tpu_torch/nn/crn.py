@@ -27,6 +27,16 @@ conv0 modes (``conv0_mode``):
   for CUDA tensors.
 All are exact up to the order of the sums.
 
+After each convolution of a stage, and after the head's 3x3 conv, the
+chain sum -> f32 -> norm -> activation -> cast runs as one pass where the
+tensors lie on a card, compute is bf16, the norm is an eval BatchNorm or
+none and no gradient is recorded: ``ops/crn_epilogue.crn_epilogue``, the
+Hopper kernel (conv0 hands it the convolutions it would add, ``addends``;
+parts that are not channels_last are made so first, and counted).
+Everywhere else (the CPU, float32 compute, train mode, a recorded
+gradient, instance norm) and in the int8 tier and 'packed' it runs
+eagerly, op for op, as ``crn_epilogue_ref`` does.
+
 ``compute_dtype=torch.bfloat16`` runs the convolutions and the tensors
 between them in bf16 while norm and activation run in f32, as the JAX
 package does; the layout pyramid is kept in the compute dtype.  Derived
@@ -64,6 +74,11 @@ from sg2im_tpu_torch.nn.layers import (
     upsample_nearest,
 )
 from sg2im_tpu_torch.ops.conv_kernel import conv3x3_int8
+from sg2im_tpu_torch.ops.crn_epilogue import (
+    add_parts,
+    channels_last_parts,
+    crn_epilogue,
+)
 from sg2im_tpu_torch.ops.relayout import depth_to_space, space_to_depth
 
 CONV0_MODES = ("legacy", "phase", "split", "packed")
@@ -82,6 +97,32 @@ def _conv3x3(x, weight, bias=None):
 def _channels_last(x):
     """The relayout kernels read NHWC memory: no copy when x already is."""
     return x.contiguous(memory_format=torch.channels_last)
+
+
+# The device type on which the post-convolution chain takes the kernel.
+EPILOGUE_DEVICE = "cuda"
+
+
+def _fuses(parts, norm, compute_dtype) -> bool:
+    """Whether the chain after a convolution takes the kernel: ``parts``
+    (the tensors it sums) on the card; the compute dtype bf16; ``norm`` an
+    eval BatchNorm or None; no gradient recorded.  The kernel's wrapper
+    refuses parts it cannot take."""
+    if (compute_dtype != torch.bfloat16
+            or parts[0].device.type != EPILOGUE_DEVICE
+            or not (norm is None or (isinstance(norm, BatchNorm)
+                                     and not norm.training))):
+        return False
+    return not (torch.is_grad_enabled() and (
+        any(p.requires_grad for p in parts)
+        or (norm is not None and norm.weight.requires_grad)))
+
+
+def _bn_vectors(norm):
+    """An eval BatchNorm's (running_mean, running_var, weight, bias)."""
+    if norm is None:
+        return None
+    return (norm.running_mean, norm.running_var, norm.weight, norm.bias)
 
 
 # ---------------------------------------------------------------------------
@@ -274,20 +315,31 @@ class FusedUpsampleConv(nn.Module):
         self.kernel_init = "kaiming_normal"
         nn.init.kaiming_normal_(self.weight)
 
-    def _layout_conv(self, layout, noise, w):
-        """The layout block's share of a split conv0: conv(layout,
-        W[:, :layout_dim]), or, with the trailing noise channels apart,
-        conv(layout, its slice) + conv(noise, its slice)."""
+    def _layout_convs(self, layout, noise, w):
+        """The layout block's share of a split conv0, as the convolutions
+        it adds: [conv(layout, W[:, :layout_dim])], or, with the trailing
+        noise channels apart, [conv(layout, its slice), conv(noise, its
+        slice)]."""
         Dl = self.layout_dim
         if noise is None:
-            return _conv3x3(layout, w[:, :Dl])
+            return [_conv3x3(layout, w[:, :Dl])]
         Dn = noise.shape[1]
-        return (_conv3x3(layout, w[:, :Dl - Dn])
-                + _conv3x3(noise, w[:, Dl - Dn:Dl]))
+        return [_conv3x3(layout, w[:, :Dl - Dn]),
+                _conv3x3(noise, w[:, Dl - Dn:Dl])]
 
     def forward(self, layout, feats, dtype, act_scales=None, tag="",
                 feats_scale=None, noise=None):
-        """With ``act_scales`` (a quantized stage) the feats branch runs
+        """The conv: :meth:`addends` added left to right."""
+        return add_parts(self.addends(layout, feats, dtype, act_scales, tag,
+                                      feats_scale, noise))
+
+    def addends(self, layout, feats, dtype, act_scales=None, tag="",
+                feats_scale=None, noise=None):
+        """The conv as the tensors whose sum, left to right, it is: one
+        for 'legacy' and the concat, two for 'split' and 'phase', three
+        for 'split' with ``noise`` apart, one for a quantized stage.
+
+        With ``act_scales`` (a quantized stage) the feats branch runs
         int8: ``feats`` arrives int8 at ``feats_scale`` from the previous
         stage, or is quantized here at the coarse resolution under
         ``<tag>/act_up``; the layout branch stays a ``dtype`` conv and the
@@ -317,25 +369,25 @@ class FusedUpsampleConv(nn.Module):
             if not same_res:
                 up = upsample_nearest(feats, 2)
                 out = _conv_int8(up, self.weight[:, Dl:], feats_scale)
-                return (out + self._layout_conv(layout, noise, w)
-                        + self.bias[:, None, None])
+                return [out + add_parts(self._layout_convs(layout, noise, w))
+                        + self.bias[:, None, None]]
             # Equal resolution: dequantize and take the concat conv.
             if feats_scale is not None:
                 feats = feats.float() * feats_scale
             feats = feats.to(dtype)
         if same_res:
             parts = [layout] + ([noise] if noise is not None else [])
-            return _conv3x3(torch.cat(parts + [feats], 1), w, b)
+            return [_conv3x3(torch.cat(parts + [feats], 1), w, b)]
         if self.mode == "phase":
             kb = _packed_kernel_aliased(self.weight[:, Dl:].float()).to(dtype)
             up = _packed_conv_apply(feats, kb, self.weight.shape[0])
-            return (_conv3x3(layout, w[:, :Dl], b)
-                    + depth_to_space(_channels_last(up)))
+            return [_conv3x3(layout, w[:, :Dl], b),
+                    depth_to_space(_channels_last(up))]
         up = upsample_nearest(feats, 2)
         if self.mode == "legacy":
-            return _conv3x3(torch.cat([layout, up], 1), w, b)
-        return self._layout_conv(layout, noise, w) + _conv3x3(up, w[:, Dl:],
-                                                               b)
+            return [_conv3x3(torch.cat([layout, up], 1), w, b)]
+        return self._layout_convs(layout, noise, w) + [
+            _conv3x3(up, w[:, Dl:], b)]
 
     def packed(self, layout_packed, feats, dtype):
         """This conv in the packed domain (the JAX package's
@@ -393,11 +445,15 @@ class RefinementModule(nn.Module):
         return self.net[0], self.net[3], (self.net[1], self.net[4])
 
     def forward(self, layout, feats, compute_dtype=None, act_scales=None,
-                tag="", emit_q=False, feats_scale=None, noise=None):
+                tag="", emit_q=False, feats_scale=None, noise=None,
+                eager=False):
         """layout (N, Dl, HH, WW); feats (N, C, H, W) at half the stage's
         resolution (or at it) -> (N, output_dim, 2H, 2W).  ``noise``: the
         layout block's trailing channels apart (split mode), pooled with
-        the layout.
+        the layout.  ``eager``: keep both chains eager, as the network
+        asks for the stages of the int8 tier and of 'packed' (whose
+        low-resolution stages are 'legacy' ones); everything else that
+        keeps a chain eager the stage sees itself.
 
         With ``act_scales`` the stage is quantized (int8 turbo tier): the
         conv0 epilogue writes int8 at ``<tag>/act_mid`` for conv1, and
@@ -413,12 +469,19 @@ class RefinementModule(nn.Module):
                 noise = avg_pool_2d(noise, HH // target)
         dtype = compute_dtype or layout.dtype
         conv0, conv1, norms = self._layers()
-        x = conv0(layout, feats, dtype, act_scales, f"{tag}/layer0",
-                  feats_scale, noise)
+        fuse = not eager and act_scales is None
+        parts = conv0.addends(layout, feats, dtype, act_scales,
+                              f"{tag}/layer0", feats_scale, noise)
         for k, norm in enumerate(norms):
             if k == 1:
-                x = (conv1(x, dtype=dtype) if act_scales is None
-                     else conv1(x, s_in=s_mid))
+                parts = [conv1(x, dtype=dtype) if act_scales is None
+                         else conv1(x, s_in=s_mid)]
+            if fuse and _fuses(parts, norm, compute_dtype):
+                x = crn_epilogue(channels_last_parts(parts), self.act[1],
+                                 compute_dtype, _bn_vectors(norm),
+                                 BatchNorm.eps)
+                continue
+            x = add_parts(parts)
             if compute_dtype is not None:
                 x = x.float()  # norm and activation run in f32
             if norm is not None:
@@ -592,6 +655,8 @@ class RefinementNetwork(nn.Module):
         feats_scale = None
         packed = False  # does `feats` hold a packed stage output?
         plan = self.quant_plan(H)
+        # The int8 tier and 'packed' keep every chain eager.
+        eager = self.quant is not None or self.conv0_mode == "packed"
         for i, module in enumerate(self.refinement_modules):
             level = pyramid[i]
             if packed:
@@ -606,7 +671,7 @@ class RefinementNetwork(nn.Module):
             out = module(level, feats, compute_dtype,
                          self.act_scales if quant else None,
                          f"{self.SCALE_PREFIX}/refinement_modules_{i}", emit,
-                         feats_scale, noise_pyramid[i])
+                         feats_scale, noise_pyramid[i], eager)
             feats, feats_scale = out if emit else (out, None)
         conv0, conv2 = self.output_conv[0], self.output_conv[2]
         if packed:
@@ -619,5 +684,10 @@ class RefinementNetwork(nn.Module):
             x = conv0(feats, s_in=feats_scale)
         else:
             x = conv0(feats, dtype=compute_dtype or feats.dtype)
+        if (not (eager or self.training)
+                and _fuses([x], None, compute_dtype)):
+            # The 1x1 RGB projection takes float32.
+            return conv2(crn_epilogue(channels_last_parts([x]), self.act[1],
+                                      torch.float32))
         x = apply_activation(self.act, x.float())
         return conv2(x)

@@ -54,6 +54,11 @@ SOURCES = {
         "sg2im_space_to_depth": [_PTR] * 4,
         "sg2im_depth_to_space": [_PTR] * 4,
     },
+    # The addends (three pointers), the BatchNorm's four vectors, out, the
+    # plan (ops/crn_epilogue.PlanStruct), stream.
+    "crn_epilogue.cu": {
+        "sg2im_crn_epilogue": [_PTR] * 10,
+    },
     "threefry.cu": {
         "sg2im_threefry_normal": [_PTR, _PTR, _U32, _U32, _U64] + [_INT] * 10
         + [_U32, _INT, _INT] + [_U32] * 3 + [_F32, _PTR],

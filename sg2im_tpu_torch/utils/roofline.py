@@ -88,6 +88,26 @@ def relayout_bounds(cases):
     return {entry: (ms, "bytes") for entry, ms in out.items()}
 
 
+# Addends of a CRN stage's conv0 epilogue by conv0 mode ('split_noise' is
+# 'split' with the noise's convolution apart).
+CONV0_ADDENDS = {"legacy": 1, "split": 2, "phase": 2, "split_noise": 3}
+
+
+def crn_epilogue_bytes(N, H, W, dims, conv0_addends):
+    """Bytes the CRN's fused post-convolution chains of one bf16 forward
+    must move (``csrc/crn_epilogue.cu``): at each stage s of C_s channels
+    at H_s x W_s (H / 2^(stages - 1 - s)), conv0's ``conv0_addends`` bf16
+    addends read and the bf16 output written, 2 (addends + 1) bytes an
+    element, and conv1's one addend, 4 bytes; the head's bf16 input read
+    and float32 output written at the last width, 6 bytes an element."""
+    n = len(dims)
+    nbytes = 0
+    for s, C in enumerate(dims):
+        elems = N * C * (H >> (n - 1 - s)) * (W >> (n - 1 - s))
+        nbytes += 2 * (conv0_addends + 1) * elems + 4 * elems
+    return nbytes + 6 * N * dims[-1] * H * W
+
+
 def conv_bounds(N, H, W, Cin, Co, elem_size):
     """(bytes, operations) of one 3x3 conv: x and the weight read once, the
     f32 output written once (the scale / bias / dq vectors are noise)."""

@@ -1,5 +1,5 @@
-"""The Hopper kernels (layout compose, 3x3 conv, relayout, threefry) against
-their plain versions, on the card.
+"""The Hopper kernels (layout compose, 3x3 conv, relayout, threefry, the
+CRN's post-convolution chain) against their plain versions, on the card.
 
 These tests need a CUDA card and nvcc; they carry the ``cuda`` marker and
 skip elsewhere.  On the card, where JAX (which tests/conftest.py imports)
@@ -8,7 +8,8 @@ need not be installed:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 The comparisons are those of ``chip_smoke.py`` phases 3 to 5b (layout
-compose: 1e-5 abs; conv: s8 within 1 ulp, bf16 within 1e-4 of max |out|;
+compose: 1e-5 abs; the CRN's post-convolution chain: within one bf16
+rounding; conv: s8 within 1 ulp, bf16 within 1e-4 of max |out|;
 relayout: bit-equal; threefry: bits bit-equal, normals within 1e-6), of
 its serving phase (the server's launches per
 engine call; the on-device deprocess bit-equal to the host's; noise on the
@@ -341,6 +342,44 @@ def test_device_noise_makes_no_host_copy(card):
     a, _ = engine.generate(graphs, noise=noise[:3])
     b, _ = engine.generate(graphs, noise=noise[:3].cpu().numpy())
     np.testing.assert_array_equal(a, b)
+
+
+EPILOGUE_CASES = {**chip_smoke.EPILOGUE_PATH, **chip_smoke.EPILOGUE_MORE}
+
+
+@pytest.mark.parametrize("name", sorted(EPILOGUE_CASES))
+def test_crn_epilogue_matches_plain_version(card, name):
+    chip_smoke.check_epilogue_case(torch, name, *EPILOGUE_CASES[name])
+
+
+def test_crn_epilogue_in_the_crn_stages_and_generate(card):
+    """E1 in a 'legacy' and a 'phase' stage against the same stage kept
+    eager, and eleven launches a bf16 forward (none in 'packed')."""
+    chip_smoke.check_epilogue_stages(torch)
+    chip_smoke.check_epilogue_generate(torch)
+
+
+def test_crn_epilogue_in_an_nchw_stage(card):
+    """A bf16 eval stage left in NCHW still launches E1 at both chains, its
+    parts copied to channels_last and counted, and matches the stage kept
+    eager."""
+    chip_smoke.check_epilogue_stage(torch, "split", False)
+
+
+def test_crn_epilogue_refuses_what_the_kernel_does_not_take(card):
+    from sg2im_tpu_torch.ops import crn_epilogue as ce
+
+    x = torch.zeros(2, 16, 4, 4, dtype=torch.bfloat16, device=card)
+    nhwc = x.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="channels_last"):
+        ce.crn_epilogue([x.contiguous()], 0.2)
+    with pytest.raises(ValueError, match="one shape"):
+        ce.crn_epilogue([nhwc, nhwc[:1]], 0.2)
+    with pytest.raises(ValueError, match="float32"):
+        ce.crn_epilogue([nhwc], 0.2, norm=(torch.zeros(16, device=card),) * 3
+                        + (torch.zeros(8, device=card),))
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        ce.crn_epilogue([nhwc], 0.2, torch.float16)
 
 
 @pytest.mark.parametrize("name", sorted(chip_smoke.THREEFRY_CASES))
