@@ -9,8 +9,8 @@ with a non-zero exit code:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, the TF32 flags;
 2. build: nvcc builds csrc/layout_compose.cu, csrc/conv3x3.cu,
-   csrc/relayout.cu, csrc/crn_epilogue.cu and csrc/threefry.cu for sm_90a,
-   one process each, started together;
+   csrc/relayout.cu, csrc/crn_epilogue.cu, csrc/mask_head.cu and
+   csrc/threefry.cu for sm_90a, one process each, started together;
 3. kernels: both entries of the layout-compose kernel against their plain
    PyTorch versions on the card, in f32 and bf16 (flagship shapes, ragged
    cases, degenerate boxes with empty object slots, and for the weights
@@ -30,7 +30,11 @@ with a non-zero exit code:
    parts' copies to channels_last counted), fused against the same stage
    kept eager; its launches in one generate of each bf16 CRN mode (eleven a
    forward, none in 'packed'); then the eleven chains timed beside their
-   bytes bound and the eager chain;
+   bytes bound and the eager chain; and M1, the eval mask head
+   (csrc/mask_head.cu), against the eager head (cuDNN, TF32 off) within
+   MASK_HEAD_BAR at vg128's b128 shape and a ragged one, one launch a
+   step, then timed beside its all-slot operations bound, its plain
+   version (the phase form in cuBLAS matmuls) and the eager head;
 4. conv: both entries of the 3x3 conv kernel (bf16, and the turbo tier's
    int8) against their plain versions on the turbo path's shapes, the
    CRN shapes of the TPU prototype and the edges of the kernel's tile plan
@@ -87,8 +91,9 @@ with a non-zero exit code:
 7. vg128 serving: the flagship generator (random weights from a seed)
    answers generate requests of 1, 3 and 8 graphs in float32, bf16 /
    'split', the turbo tier, bf16 / 'packed', 'phase' and 'split_noise'
-   and float32 / 'packed', agrees with the CPU engines on a small input,
-   and its batch-128 forward is timed in each mode;
+   and float32 / 'packed' (M1 launched four times a forward in each),
+   agrees with the CPU engines on a small input, and its batch-128
+   forward is timed in each mode;
 7b. seeded: the JAX package's seed contract across devices: the seeded
    vg128 b128 generate on the card in f32 (one threefry launch, one K1
    launch) against the CPU engine's seeded generate of its first two
@@ -560,6 +565,9 @@ def phase_kernels(torch, card):
     e1_errs, e1_times = phase_epilogue(torch, card)
     errs.update(e1_errs)
     times.update(e1_times)
+    m1_errs, m1_times = phase_mask_head(torch, card)
+    errs.update(m1_errs)
+    times.update(m1_times)
     return errs, times
 
 
@@ -804,6 +812,104 @@ def phase_epilogue(torch, card):
           f"{times['crn_epilogue_library']:.4f}); at most {worst} steps off "
           f"it, max_abs_err {max_err:.3e}; on {card}")
     return {"crn_epilogue": max_err}, times
+
+
+MASK_HEAD_SOURCE = "sg2im_tpu_torch/csrc/mask_head.cu"
+# M1 against the eager head: the masks (sigmoid outputs) within this, the
+# bar of the port's tests for exact reformulations in float32.
+MASK_HEAD_BAR = 2e-5
+# vg128's mask head at b128: 128 images of 16 object slots, gconv_dim 128,
+# 16 x 16 masks; a ragged case checked only.
+MASK_HEAD_TIMED = (2048, 128, 16)
+MASK_HEAD_MORE = (37, 128, 16)
+
+
+def mask_head_inputs(torch, slots, C, M, seed):
+    """An eval MaskNet on the card, its BatchNorms' vectors drawn as the
+    benchmark draws them (running means and biases 0.1 z, weights 1 +
+    0.1 z, variances exp(0.2 z)), and (slots, C, 1, 1) vectors."""
+    from sg2im_tpu_torch.models.sg2im import MaskNet
+
+    torch.manual_seed(seed)
+    net = MaskNet(C, M).eval()
+    for k in range(net.steps):
+        _, vectors = epilogue_inputs(torch, 0, 1, C, 1, 1, True, seed + k)
+        for buf, v in zip(("running_mean", "running_var", "weight", "bias"),
+                          vectors):
+            getattr(net[4 * k + 1], buf).data.copy_(v.cpu())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(slots, C, 1, 1, device="cuda", generator=g)
+    return net.to("cuda"), x
+
+
+def mask_head_library(torch, net, x):
+    """The eager head, cuDNN's float32 convolutions (TF32 off)."""
+    return torch.sigmoid(net(x)).squeeze(1)
+
+
+def mask_head_plain(torch, net, x):
+    """M1's plain version on the card: the phase form in cuBLAS matmuls on
+    the unfolded coarse patches."""
+    from sg2im_tpu_torch.ops import mask_head as mh
+
+    return mh.mask_head_ref(x.reshape(x.shape[0], -1), net._phase_steps(),
+                            net._final(), net[1].eps)
+
+
+def phase_mask_head(torch, card):
+    """M1, the eval mask head, within phase_kernels: at vg128's b128 shape
+    and a ragged one against the eager head (cuDNN, TF32 off) within
+    MASK_HEAD_BAR, one launch a step; then the head timed beside its
+    all-slot operations bound, the eager head and the plain phase form.
+    -> ({max abs err}, {times})."""
+    from sg2im_tpu_torch.inference import full_fp32
+    from sg2im_tpu_torch.ops import mask_head as mh
+    from sg2im_tpu_torch.utils.roofline import (
+        mask_head_bytes,
+        mask_head_flops,
+    )
+
+    err, times = 0.0, {}
+    with torch.inference_mode(), full_fp32():
+        for i, (slots, C, M) in enumerate((MASK_HEAD_TIMED,
+                                           MASK_HEAD_MORE)):
+            net, x = mask_head_inputs(torch, slots, C, M, seed=11 + i)
+            before = mh.mask_head.launches
+            got = net.masks(x)
+            launched = mh.mask_head.launches - before
+            want = mask_head_library(torch, net, x)
+            plain = mask_head_plain(torch, net, x)
+            torch.cuda.synchronize()
+            case = (got - want).abs().max().item()
+            plain_err = (plain - want).abs().max().item()
+            print(f"[kernels] M1 (the mask head) at {slots} slots C{C} "
+                  f"M{M}: {launched} launches, max_abs_err {case:.3e} "
+                  f"against the eager head (plain phase form {plain_err:.3e})")
+            if (launched != M.bit_length() - 1 or got.shape != (slots, M, M)
+                    or max(case, plain_err) > MASK_HEAD_BAR):
+                fail(f"M1 at {slots} slots: {launched} launches, "
+                     f"{tuple(got.shape)}, max_abs_err {case:.3e}")
+            err = max(err, case)
+            if i == 0:
+                times = {
+                    "mask_head": time_ms(lambda: net.masks(x)),
+                    "mask_head_plain": time_ms(
+                        lambda: mask_head_plain(torch, net, x)),
+                    "mask_head_library": time_ms(
+                        lambda: mask_head_library(torch, net, x)),
+                }
+    ops = mask_head_flops(*MASK_HEAD_TIMED)
+    bound, by = roofline_ms(mask_head_bytes(*MASK_HEAD_TIMED), ops,
+                            F32_FLOPS)
+    times["mask_head_bound"] = (bound, by)
+    print(f"[kernels] M1 (the mask head) at vg128 b128 ({MASK_HEAD_TIMED[0]} "
+          f"slots), the four steps summed: {times['mask_head']:.4f} ms, "
+          f"{100 * bound / times['mask_head']:.1f}% of its {bound:.4f} ms "
+          f"{by} bound ({ops / 1e9:.2f} GFLOP at the float32 peak); the "
+          f"plain phase form (cuBLAS) {times['mask_head_plain']:.4f} ms, "
+          f"the eager head (cuDNN) {times['mask_head_library']:.4f} ms; "
+          f"on {card}")
+    return {"mask_head": err}, times
 
 
 # name: (N, H, W, Cin, Co).  The turbo path's four int8 convs at vg128 with
@@ -1678,6 +1784,7 @@ def kernel_wrappers():
     from sg2im_tpu_torch.ops import conv_kernel as ck
     from sg2im_tpu_torch.ops import crn_epilogue as ce
     from sg2im_tpu_torch.ops import layout_kernel as lk
+    from sg2im_tpu_torch.ops import mask_head as mh
     from sg2im_tpu_torch.ops import prng_kernel as pk
     from sg2im_tpu_torch.ops import relayout as rl
 
@@ -1690,7 +1797,8 @@ def kernel_wrappers():
             "threefry_normal": pk.threefry_normal,
             "threefry_uniform": pk.threefry_uniform,
             "threefry_split": pk.threefry_split,
-            "crn_epilogue": ce.crn_epilogue}
+            "crn_epilogue": ce.crn_epilogue,
+            "mask_head": mh.mask_head}
 
 
 # K1's counts in read_launches: all its launches, and those with a bf16
@@ -1698,10 +1806,11 @@ def kernel_wrappers():
 K1_COUNTS = ("layout_compose_boxes", "layout_compose_boxes_bf16")
 # A training run's kernels: K1, the threefry draw of its layout noise
 # (once per step, check_model batch, triptych and step_breakdown), the
-# split of the state's key (once per step) and, in bf16, E1 in the
-# generator's eval forwards (each checked by train_e1_launches).
+# split of the state's key (once per step), in bf16 E1 in the generator's
+# eval forwards (each checked by train_e1_launches), and M1 in the eval
+# forwards of a generator whose mask head it takes (gconv_dim 128).
 TRAIN_COUNTS = K1_COUNTS + ("threefry_normal", "threefry_split",
-                            "crn_epilogue")
+                            "crn_epilogue", "mask_head")
 # The CRN stages of the training runs' generators (the CLI's default
 # refinement_network_dims, 1024 to 64).
 TRAIN_CRN_STAGES = 5
@@ -1956,6 +2065,11 @@ def phase_vg128(torch, card, launches):
     if path["crn_epilogue"] != 3 * 11:
         fail(f"bf16/split launched E1 {path['crn_epilogue']} times in 3 "
              f"generates, not 11 a forward")
+    # Three generates of each: M1 once a step (four) a forward, in f32 and
+    # bf16 alike.
+    if path["mask_head"] != 2 * 3 * 4:
+        fail(f"f32 and bf16/split launched M1 {path['mask_head']} times in "
+             f"6 generates, not 4 a forward")
 
     # The further CRN modes, each its own path.
     for mode, (opts, needs) in more_modes.items():
@@ -1969,6 +2083,9 @@ def phase_vg128(torch, card, launches):
         for name in ("layout_compose_boxes",) + needs:
             if path[name] == 0:
                 fail(f"the {mode} path never launched {name}")
+        if path["mask_head"] != 3 * 4:
+            fail(f"the {mode} path launched M1 {path['mask_head']} times in "
+                 f"3 generates, not 4 a forward")
         if "packed" in mode and path["crn_epilogue"]:
             fail(f"the {mode} path launched E1: 'packed' keeps its chains "
                  f"eager")
@@ -1992,6 +2109,9 @@ def phase_vg128(torch, card, launches):
     if path["crn_epilogue"]:
         fail("the turbo path launched E1: the int8 tier keeps its chains "
              "eager")
+    if path["mask_head"] != 3 * 4:
+        fail(f"the turbo path launched M1 {path['mask_head']} times in 3 "
+             f"generates, not 4 a forward")
     engines["turbo bf16/split"] = turbo
 
     # Agreement with the CPU engines on a small input with the same
@@ -2538,7 +2658,8 @@ def phase_serve(torch, card, launches):
         with SmokeServer(common + ["--crn_mode", "split"]) as server:
             add_launches(launches, drive_server(
                 torch, "bf16/split", server, vocab, rng, card,
-                {"layout_compose_boxes": 1, "crn_epilogue": 11}))
+                {"layout_compose_boxes": 1, "crn_epilogue": 11,
+                 "mask_head": 4}))
             time_server(torch, server, vocab, rng, card)
             engine = server.engine
             graphs = random_graphs(vocab, 16, rng)
@@ -2579,13 +2700,13 @@ def phase_serve(torch, card, launches):
             add_launches(launches, drive_server(
                 torch, "turbo int8 bf16/split", server, vocab, rng, card,
                 {"layout_compose_boxes": 1, "conv3x3_s8": 4,
-                 "crn_epilogue": 0},
+                 "crn_epilogue": 0, "mask_head": 4},
                 coalesced_max=TURBO_COALESCED_U8,
                 coalesced_psnr=TURBO_COALESCED_DB))
         with SmokeServer(common + ["--crn_mode", "phase"]) as server:
             path = drive_server(torch, "bf16/phase", server, vocab, rng, card,
                                 {"layout_compose_boxes": 1,
-                                 "crn_epilogue": 11})
+                                 "crn_epilogue": 11, "mask_head": 4})
             add_launches(launches, path)
             if path["relayout_d2s"] == 0:
                 fail("the phase server never launched the relayout d2s")
@@ -4554,6 +4675,12 @@ def main() -> int:
          errs["crn_epilogue"], times["crn_epilogue"],
          times["crn_epilogue_plain"], (times["crn_epilogue_bound"], "bytes"),
          times["crn_epilogue_library"]),
+        # No TPU kernel: XLA compiled the mask head's convolutions
+        # (sg2im_tpu/models/sg2im.py MaskNet).  Timed as vg128's b128 head,
+        # its four steps summed, beside the eager head (cuDNN).
+        ("mask_head", MASK_HEAD_SOURCE, "none (XLA's convolutions)",
+         errs["mask_head"], times["mask_head"], times["mask_head_plain"],
+         times["mask_head_bound"], times["mask_head_library"]),
     ]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

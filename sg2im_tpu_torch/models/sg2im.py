@@ -32,14 +32,26 @@ from sg2im_tpu_torch.nn.layers import (
     run_masked,
 )
 from sg2im_tpu_torch.ops.layout import boxes_to_layout, masks_to_layout
+from sg2im_tpu_torch.ops.mask_head import CHANNELS as MASK_KERNEL_CHANNELS
+from sg2im_tpu_torch.ops.mask_head import mask_head, phase_weights
 
 CRN_MODES = CONV0_MODES + ("split_noise",)
+
+
+# The device type on which the eval mask head takes M1.
+MASK_HEAD_DEVICE = "cuda"
 
 
 class MaskNet(nn.Sequential):
     """Mask head (upstream ``_build_mask_net``): for each doubling step k,
     Upsample at 4k, BatchNorm at 4k+1, Conv3x3 at 4k+2 and a true ReLU at
-    4k+3; a final Conv1x1 at 4 * steps.  Input (B, dim, 1, 1)."""
+    4k+3; a final Conv1x1 at 4 * steps.  Input (B, dim, 1, 1).
+
+    :meth:`masks` is the head with its sigmoid.  In eval mode, on the card,
+    in float32, with no gradient recorded and at the kernel's width it runs
+    as M1 (``ops/mask_head.mask_head``: one launch a step, the phase form
+    with the steps' weights folded once per weight version); everywhere
+    else (train mode, a gradient, the CPU) eagerly, layer by layer."""
 
     def __init__(self, dim: int, mask_size: int):
         layers = []
@@ -53,11 +65,54 @@ class MaskNet(nn.Sequential):
             raise ValueError("Mask size must be a power of 2")
         layers.append(nn.Conv2d(dim, 1, 1))
         super().__init__(*layers)
+        self.steps = len(layers) // 4
+        self._folded = None
 
     def forward(self, x, sample_mask=None):
         """``sample_mask`` (B,): which rows count in the train-mode
         BatchNorm statistics (padded object slots do not)."""
         return run_masked(self, x, sample_mask)
+
+    def masks(self, x, sample_mask=None):
+        """sigmoid(head(x)) as (B, M, M)."""
+        if self._takes_kernel(x):
+            return mask_head(x.reshape(x.shape[0], -1).contiguous(),
+                             self._phase_steps(), self._final(),
+                             BatchNorm.eps)
+        return torch.sigmoid(self(x, sample_mask)).squeeze(1)
+
+    def _takes_kernel(self, x) -> bool:
+        if (x.device.type != MASK_HEAD_DEVICE or x.dtype != torch.float32
+                or self[2].in_channels != MASK_KERNEL_CHANNELS
+                or any(m.training for m in self.modules())):
+            return False
+        return not (torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad
+                                   for p in self.parameters())))
+
+    def _phase_steps(self):
+        """[(the BatchNorm's vectors, the folded conv weight, its bias)] a
+        step.  The weights are folded again when a conv weight is another
+        tensor (a new parameter, a ``functional_call``'s state) or was
+        changed in place; a change through ``.data`` goes unseen.  The
+        fold keeps the weights it was made from, so no later tensor takes
+        their addresses while it is kept."""
+        convs = [self[4 * k + 2] for k in range(self.steps)]
+        key = [(c.weight.data_ptr(), None if c.weight.is_inference()
+                else c.weight._version) for c in convs]
+        if self._folded is None or self._folded[0] != key:
+            with torch.no_grad():
+                self._folded = (key, [c.weight.detach() for c in convs],
+                                [phase_weights(c.weight) for c in convs])
+        return [((bn.running_mean, bn.running_var, bn.weight, bn.bias),
+                 folded, conv.bias)
+                for bn, conv, folded in zip(
+                    (self[4 * k + 1] for k in range(self.steps)), convs,
+                    self._folded[2])]
+
+    def _final(self):
+        conv = self[4 * self.steps]
+        return conv.weight.reshape(-1), conv.bias
 
 
 class Sg2ImGenerator(nn.Module):
@@ -179,8 +234,7 @@ class Sg2ImGenerator(nn.Module):
         N, O = obj_vecs.shape[:2]
         mask_in = obj_vecs.reshape(N * O, -1, 1, 1)
         flat_mask = None if obj_mask is None else obj_mask.reshape(N * O)
-        return torch.sigmoid(
-            self.mask_net(mask_in, sample_mask=flat_mask)).reshape(
+        return self.mask_net.masks(mask_in, sample_mask=flat_mask).reshape(
             N, O, self.mask_size, self.mask_size)
 
     def compose_layout(self, obj_vecs, boxes, masks, obj_mask=None):

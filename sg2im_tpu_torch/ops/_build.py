@@ -59,6 +59,12 @@ SOURCES = {
     "crn_epilogue.cu": {
         "sg2im_crn_epilogue": [_PTR] * 10,
     },
+    # x, the BatchNorm's four vectors, the folded weights, the conv's
+    # bias, the 1x1 conv's weight and bias, out, the plan
+    # (ops/mask_head.PlanStruct), stream.
+    "mask_head.cu": {
+        "sg2im_mask_head_step": [_PTR] * 12,
+    },
     "threefry.cu": {
         "sg2im_threefry_normal": [_PTR, _PTR, _U32, _U32, _U64] + [_INT] * 10
         + [_U32, _INT, _INT] + [_U32] * 3 + [_F32, _PTR],

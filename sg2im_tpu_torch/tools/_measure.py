@@ -19,7 +19,11 @@ import time
 import numpy as np
 import torch
 
-from sg2im_tpu_torch.utils.roofline import FlopCounter, layout_bounds
+from sg2im_tpu_torch.utils.roofline import (
+    FlopCounter,
+    layout_bounds,
+    mask_head_flops,
+)
 from sg2im_tpu_torch.utils.timing import profile_window
 
 # K1's timed instance: the flagship's batch-128 layout compose, as every
@@ -152,13 +156,21 @@ def count_flops(fn, k1_shape=None) -> tuple[dict, dict]:
     """({operation type: operations}, {hand kernel: operations}) of one
     call of ``fn``; ``k1_shape`` (N, O, M, H, W, D) is the shape of the
     layout compose that ``fn`` launches on the card, whose closed form
-    each launch adds."""
+    each launch adds, and of the mask head (N O slots of D channels to M x
+    M), whose launches (one a step) add its phase form's operations a step
+    on average.  The eager head the CPU runs counts its direct 3x3 convs,
+    2.3 times the phase form's."""
     per_launch = {}
     if k1_shape is not None:
         from sg2im_tpu_torch.ops.layout_kernel import layout_compose
+        from sg2im_tpu_torch.ops.mask_head import mask_head
 
+        N, O, M, _, _, D = k1_shape
         per_launch[layout_compose] = (
             layout_bounds(*k1_shape, weights=False)[1], "f32")
+        if M and M > 1:
+            per_launch[mask_head] = (
+                mask_head_flops(N * O, D, M) // (M.bit_length() - 1), "f32")
     with FlopCounter(per_launch) as fc:
         fn()
     return dict(fc.by_type), dict(fc.kernels)

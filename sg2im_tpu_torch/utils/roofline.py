@@ -108,6 +108,28 @@ def crn_epilogue_bytes(N, H, W, dims, conv0_addends):
     return nbytes + 6 * N * dims[-1] * H * W
 
 
+def mask_head_flops(slots, C, M):
+    """Float32 operations of the eval mask head in the phase form
+    (``csrc/mask_head.cu``) over ``slots`` object slots of C channels to
+    M x M masks: a slot's first step is four matrix-vector products of the
+    summed taps (2 x 4 C^2), each later step from side S four phases of
+    four taps on the coarse grid (2 x 16 C^2 S^2, off-grid taps counted),
+    then the 1x1 conv (2 C M^2)."""
+    ops, side = 8 * C * C, 2
+    while side < M:
+        ops += 32 * C * C * side * side
+        side *= 2
+    return slots * (ops + 2 * C * M * M)
+
+
+def mask_head_bytes(slots, C, M):
+    """Bytes the eval mask head must move: the slots' float32 vectors read
+    and their masks written once, and per step the folded weights (16 C^2),
+    the conv's bias and the BatchNorm's four vectors, then the 1x1 conv."""
+    steps = M.bit_length() - 1
+    return 4 * (slots * (C + M * M) + steps * (16 * C * C + 5 * C) + C + 1)
+
+
 def conv_bounds(N, H, W, Cin, Co, elem_size):
     """(bytes, operations) of one 3x3 conv: x and the weight read once, the
     f32 output written once (the scale / bias / dq vectors are noise)."""

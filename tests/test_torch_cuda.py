@@ -1,5 +1,6 @@
 """The Hopper kernels (layout compose, 3x3 conv, relayout, threefry, the
-CRN's post-convolution chain) against their plain versions, on the card.
+CRN's post-convolution chain, the mask head) against their plain versions,
+on the card.
 
 These tests need a CUDA card and nvcc; they carry the ``cuda`` marker and
 skip elsewhere.  On the card, where JAX (which tests/conftest.py imports)
@@ -9,13 +10,14 @@ need not be installed:
 
 The comparisons are those of ``chip_smoke.py`` phases 3 to 5b (layout
 compose: 1e-5 abs; the CRN's post-convolution chain: within one bf16
-rounding; conv: s8 within 1 ulp, bf16 within 1e-4 of max |out|;
-relayout: bit-equal; threefry: bits bit-equal, normals within 1e-6), of
-its serving phase (the server's launches per
-engine call; the on-device deprocess bit-equal to the host's; noise on the
-card used where it lies), of its training phase (the kernels'
-gradients, a full-width step, the NaN guard) and of its training CLI
-phase (``prefetch_to_device`` bit-equal to the host batches).
+rounding; the mask head: within 2e-5 abs of the eager head; conv: s8
+within 1 ulp, bf16 within 1e-4 of max |out|; relayout: bit-equal;
+threefry: bits bit-equal, normals within 1e-6), of its serving phase (the
+server's launches per engine call; the on-device deprocess bit-equal to
+the host's; noise on the card used where it lies), of its training phase
+(the kernels' gradients, a full-width step, the NaN guard) and of its
+training CLI phase (``prefetch_to_device`` bit-equal to the host
+batches).
 """
 
 import numpy as np
@@ -380,6 +382,66 @@ def test_crn_epilogue_refuses_what_the_kernel_does_not_take(card):
                         + (torch.zeros(8, device=card),))
     with pytest.raises(ValueError, match="bf16 or float32"):
         ce.crn_epilogue([nhwc], 0.2, torch.float16)
+
+
+@pytest.mark.parametrize("shape", [chip_smoke.MASK_HEAD_TIMED,
+                                   chip_smoke.MASK_HEAD_MORE],
+                         ids=["vg128_b128", "ragged"])
+def test_mask_head_matches_the_eager_head(card, shape):
+    """M1 at vg128's b128 shape (2048 slots, TF32 off) against the eager
+    head within 2e-5 on the sigmoid output, one launch a step."""
+    from sg2im_tpu_torch.ops import mask_head as mh
+
+    net, x = chip_smoke.mask_head_inputs(torch, *shape, seed=3)
+    before = mh.mask_head.launches
+    got = net.masks(x)
+    assert mh.mask_head.launches == before + 4
+    want = chip_smoke.mask_head_library(torch, net, x)
+    assert got.shape == want.shape == (shape[0], 16, 16)
+    assert (got - want).abs().max().item() <= chip_smoke.MASK_HEAD_BAR
+
+
+def test_mask_head_in_a_generate(card, monkeypatch):
+    """A vg128 generate takes M1 at each step of its forward, in float32
+    and bf16 'split' alike, and its masks, padded slots included, are the
+    eager head's within 2e-5."""
+    from sg2im_tpu_torch.inference import InferenceEngine
+    from sg2im_tpu_torch.models import sg2im
+    from sg2im_tpu_torch.ops import mask_head as mh
+
+    vocab, kwargs = chip_smoke.vg128_config()
+    state = chip_smoke.vg128_state(torch)
+    graphs = chip_smoke.random_graphs(vocab, 3, np.random.RandomState(4),
+                                      n_objs=5, n_rels=3)
+    for opts in ({}, {"compute_dtype": torch.bfloat16, "crn_mode": "split"}):
+        engine = InferenceEngine(vocab, kwargs, state, device="cuda", **opts)
+        before = mh.mask_head.launches
+        _, fused = engine.generate(graphs, seed=1)
+        assert mh.mask_head.launches == before + 4
+        monkeypatch.setattr(sg2im, "MASK_HEAD_DEVICE", None)
+        _, eager = engine.generate(graphs, seed=1)
+        monkeypatch.undo()
+        assert mh.mask_head.launches == before + 4
+        assert (fused["masks"] - eager["masks"]).abs().max().item() <= \
+            chip_smoke.MASK_HEAD_BAR
+
+
+def test_mask_head_refuses_what_the_kernel_does_not_take(card):
+    from sg2im_tpu_torch.ops import mask_head as mh
+
+    net, x = chip_smoke.mask_head_inputs(torch, 4, 128, 4, seed=0)
+    (norm, folded, bias), _ = net._phase_steps()
+    grid = x.reshape(4, 1, 1, 128)
+    with pytest.raises(ValueError, match="float32"):
+        mh.mask_step(grid.double(), norm, folded, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        mh.mask_step(grid, norm, folded.transpose(2, 3), bias)
+    with pytest.raises(ValueError, match="128 channels"):
+        mh.mask_step(grid[..., :64].contiguous(),
+                     tuple(t[:64] for t in norm),
+                     folded[..., :64, :64].contiguous(), bias[:64])
+    with pytest.raises(ValueError, match="grid"):
+        mh.mask_step(x.reshape(4, 128), norm, folded, bias)
 
 
 @pytest.mark.parametrize("name", sorted(chip_smoke.THREEFRY_CASES))
