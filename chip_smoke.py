@@ -9,8 +9,9 @@ with a non-zero exit code:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, the TF32 flags;
 2. build: nvcc builds csrc/layout_compose.cu, csrc/conv3x3.cu,
-   csrc/relayout.cu, csrc/crn_epilogue.cu, csrc/mask_head.cu and
-   csrc/threefry.cu for sm_90a, one process each, started together;
+   csrc/relayout.cu, csrc/crn_epilogue.cu, csrc/mask_head.cu,
+   csrc/resample.cu and csrc/threefry.cu for sm_90a, one process each,
+   started together;
 3. kernels: both entries of the layout-compose kernel against their plain
    PyTorch versions on the card, in f32 and bf16 (flagship shapes, ragged
    cases, degenerate boxes with empty object slots, and for the weights
@@ -34,7 +35,14 @@ with a non-zero exit code:
    (csrc/mask_head.cu), against the eager head (cuDNN, TF32 off) within
    MASK_HEAD_BAR at vg128's b128 shape and a ragged one, one launch a
    step, then timed beside its all-slot operations bound, its plain
-   version (the phase form in cuBLAS matmuls) and the eager head;
+   version (the phase form in cuBLAS matmuls) and the eager head; and R1,
+   the CRN's 2x resampling (csrc/resample.cu): the layout pyramid and each
+   feats upsample of both benchmark cells' b128 bf16 forwards bit-equal to
+   aten's avg_pool2d and interpolate, with float32, one and five levels,
+   a one-vector width and an NCHW input (its copy counted) besides, each
+   direction timed at both cells beside its bytes bound and its plain
+   version (aten's own calls), and its launches in one generate of each
+   bf16 CRN mode;
 4. conv: both entries of the 3x3 conv kernel (bf16, and the turbo tier's
    int8) against their plain versions on the turbo path's shapes, the
    CRN shapes of the TPU prototype and the edges of the kernel's tile plan
@@ -568,6 +576,9 @@ def phase_kernels(torch, card):
     m1_errs, m1_times = phase_mask_head(torch, card)
     errs.update(m1_errs)
     times.update(m1_times)
+    r1_errs, r1_times = phase_resample(torch, card)
+    errs.update(r1_errs)
+    times.update(r1_times)
     return errs, times
 
 
@@ -742,24 +753,29 @@ def check_epilogue_generate(torch):
     eleven times a forward, and 'packed' never."""
     from sg2im_tpu_torch.inference import InferenceEngine
     from sg2im_tpu_torch.ops import crn_epilogue as ce
+    from sg2im_tpu_torch.ops import resample as rs
 
     vocab, kwargs = vg128_config()
     state = vg128_state(torch)
     graphs = random_graphs(vocab, 2, np.random.RandomState(3))
-    counts = {}
+    counts, r1 = {}, {}
     for mode in ("split", "legacy", "phase", "split_noise", "packed"):
         engine = InferenceEngine(vocab, kwargs, state, device="cuda",
                                  compute_dtype=torch.bfloat16,
                                  crn_mode=mode)
-        before = ce.crn_epilogue.launches
+        before = ce.crn_epilogue.launches, rs.launches, rs.layout_copies
         engine.generate(graphs, seed=1)
-        counts[mode] = ce.crn_epilogue.launches - before
+        counts[mode] = ce.crn_epilogue.launches - before[0]
+        r1[mode] = (rs.launches - before[1], rs.layout_copies - before[2])
         del engine
     print(f"[kernels] E1 launches in one generate of 2 vg128 graphs, bf16: "
-          f"{counts}")
+          f"{counts}; R1's launches and layout copies: {r1}")
     want = {m: 0 if m == "packed" else 11 for m in counts}
     if counts != want:
         fail(f"E1 launched {counts} in one generate, not {want}")
+    if r1 != {m: (n, 0) for m, n in R1_GENERATE.items()}:
+        fail(f"R1 launched (and copied) {r1} in one generate, not "
+             f"{R1_GENERATE} without copies")
 
 
 def phase_epilogue(torch, card):
@@ -910,6 +926,159 @@ def phase_mask_head(torch, card):
           f"the eager head (cuDNN) {times['mask_head_library']:.4f} ms; "
           f"on {card}")
     return {"mask_head": err}, times
+
+
+RESAMPLE_SOURCE = "sg2im_tpu_torch/csrc/resample.cu"
+# The benchmark cells' b128 forwards in bf16 'split': (images, layout
+# channels, side).  The pyramid pools RESAMPLE_LEVELS levels; the stages
+# after the first upsample feats of RESAMPLE_STAGES channels at side /
+# 2^(RESAMPLE_LEVELS - i).
+RESAMPLE_CELLS = {"vg128": (128, 160, 128), "coco64": (128, 160, 64)}
+RESAMPLE_LEVELS = 4
+RESAMPLE_STAGES = (1024, 512, 256, 128)
+# Checked only, (kind, shape, dtype, levels, channels_last): float32, one
+# and five levels, one vector of channels, sides of two sizes, an NCHW
+# input (copied, and the copy counted).
+RESAMPLE_MORE = (
+    ("pyramid", (4, 64, 64, 64), "f32", 4, True),
+    ("pyramid", (3, 8, 32, 48), "bf16", 4, True),
+    ("pyramid", (2, 16, 64, 32), "bf16", 5, True),
+    ("pyramid", (2, 24, 6, 10), "f32", 1, True),
+    ("pyramid", (2, 32, 32, 32), "bf16", 3, False),
+    ("upsample", (4, 64, 16, 16), "f32", 0, True),
+    ("upsample", (3, 8, 5, 7), "bf16", 0, True),
+    ("upsample", (2, 32, 8, 8), "bf16", 0, False),
+)
+# R1's launches in one generate of vg128 in each bf16 CRN mode: the
+# pyramid (two with the noise apart) and each stage's feats upsample but
+# the first's one channel; 'phase' upsamples none, 'packed' only at its
+# one 'legacy' stage after the first.
+R1_GENERATE = {"split": 5, "legacy": 5, "phase": 1, "split_noise": 6,
+               "packed": 2}
+# R1's launches in one forward of vg128's int8 tier (quantized stages 32
+# and 64): the pyramid and the float stages' upsamples (16 and 128); the
+# quantized stages upsample int8 feats by index expansion.
+R1_TURBO = 3
+
+
+def check_r1(what, path, want):
+    """Fail unless R1 launched ``want`` times on a path since the last
+    reset_launches, and copied no input to channels_last."""
+    from sg2im_tpu_torch.ops import resample as rs
+
+    if path["crn_resample"] != want or rs.layout_copies:
+        fail(f"{what}: R1 launched {path['crn_resample']} times, not "
+             f"{want}, and copied {rs.layout_copies} inputs to "
+             f"channels_last")
+
+
+def resample_cases(cell):
+    """[(kind, NCHW shape, dtype, levels, channels_last)] of a cell's b128
+    forward: its pyramid, then each upsampled stage."""
+    N, D, H = RESAMPLE_CELLS[cell]
+    cases = [("pyramid", (N, D, H, H), "bf16", RESAMPLE_LEVELS, True)]
+    for i, C in enumerate(RESAMPLE_STAGES):
+        side = H >> (RESAMPLE_LEVELS - i)
+        cases.append(("upsample", (N, C, side, side), "bf16", 0, True))
+    return cases
+
+
+def resample_input(torch, shape, dtype, channels_last, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = 3 * torch.randn(shape, device="cuda", generator=g)
+    x = x.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+    return x.contiguous(memory_format=torch.channels_last if channels_last
+                        else torch.contiguous_format)
+
+
+def resample_fns(kind, x, levels):
+    """(R1's call, its plain version) of one case: each returns a list of
+    tensors."""
+    from sg2im_tpu_torch.ops import resample as rs
+
+    if kind == "pyramid":
+        return (lambda: rs.pool_pyramid(x, levels),
+                lambda: rs.pool_pyramid_ref(x, levels))
+    return lambda: [rs.upsample2(x)], lambda: [rs.upsample2_ref(x)]
+
+
+def bits_apart(torch, a, b) -> int:
+    """Elements of same-typed a and b whose bits differ."""
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return int((a.view(ints) != b.view(ints)).sum())
+
+
+def check_resample_case(torch, kind, shape, dtype, levels, channels_last,
+                        seed=0) -> int:
+    """One case against aten's calls: one launch, channels_last outputs of
+    the right shapes, the input's copy counted where it was not
+    channels_last.  -> the elements whose bits differ (0 when
+    bit-equal)."""
+    from sg2im_tpu_torch.ops import resample as rs
+
+    x = resample_input(torch, shape, dtype, channels_last, seed)
+    kernel, plain = resample_fns(kind, x, levels)
+    before = rs.launches, rs.layout_copies
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    launched = rs.launches - before[0]
+    copies = rs.layout_copies - before[1]
+    apart = sum(bits_apart(torch, g, w) for g, w in zip(got, want))
+    if (launched != 1 or copies != (0 if channels_last else 1)
+            or [g.shape for g in got] != [w.shape for w in want]
+            or not all(g.is_contiguous(memory_format=torch.channels_last)
+                       for g in got)):
+        fail(f"R1 {kind} {shape} {dtype}: {launched} launches, {copies} "
+             f"copies, shapes {[tuple(g.shape) for g in got]}")
+    return apart
+
+
+def phase_resample(torch, card):
+    """R1, the CRN's 2x resampling, within phase_kernels: both cells' b128
+    pyramid and upsamples bit-equal to aten's calls, RESAMPLE_MORE
+    besides; each direction timed at both cells beside its bytes bound
+    and its plain version, which is aten's calls (the library's).
+    -> ({elements off}, {times})."""
+    from sg2im_tpu_torch.utils.roofline import crn_resample_bytes
+
+    times, apart = {}, 0
+    with torch.inference_mode():
+        for i, case in enumerate(RESAMPLE_MORE):
+            apart += check_resample_case(torch, *case, seed=100 + i)
+        for cell in RESAMPLE_CELLS:
+            for i, case in enumerate(resample_cases(cell)):
+                apart += check_resample_case(torch, *case, seed=i)
+                kind, shape, dtype, levels, cl = case
+                x = resample_input(torch, shape, dtype, cl, seed=i)
+                kernel, plain = resample_fns(kind, x, levels)
+                key = f"resample_{kind}_{cell}"
+                for suffix, fn in (("", kernel), ("_plain", plain)):
+                    times[key + suffix] = (times.get(key + suffix, 0.0)
+                                           + time_ms(fn))
+                del x
+    for cell, (N, D, H) in RESAMPLE_CELLS.items():
+        # Level 0 read once, levels 1 .. 4 written once; the rest of the
+        # forward's bytes are the upsamples'.
+        pool = 2 * N * D * sum((H >> l) ** 2
+                               for l in range(RESAMPLE_LEVELS + 1))
+        both = crn_resample_bytes(N, H, H, RESAMPLE_STAGES + (64,), D, 2)
+        bounds = {"pyramid": pool, "upsample": both - pool}
+        for kind, nbytes in bounds.items():
+            key = f"resample_{kind}_{cell}"
+            bound = roofline_ms(nbytes, 0, 1.0)[0]
+            times[key + "_bound"] = bound
+            what = " (the four stages summed)" if kind == "upsample" else ""
+            print(f"[kernels] R1 {kind} at {cell} b128 bf16{what}: "
+                  f"{times[key]:.4f} ms, {100 * bound / times[key]:.1f}% of "
+                  f"its {bound:.4f} ms bytes bound ({nbytes / 1e6:.1f} MB); "
+                  f"plain (aten's calls, the library's) "
+                  f"{times[key + '_plain']:.4f} ms; on {card}")
+    if apart:
+        fail(f"R1 is not bit-equal to aten: {apart} elements differ")
+    print(f"[kernels] R1 bit-equal to aten's avg_pool2d and interpolate on "
+          f"both cells' b128 shapes and {len(RESAMPLE_MORE)} more cases")
+    return {"crn_resample": 0.0}, times
 
 
 # name: (N, H, W, Cin, Co).  The turbo path's four int8 convs at vg128 with
@@ -1787,6 +1956,7 @@ def kernel_wrappers():
     from sg2im_tpu_torch.ops import mask_head as mh
     from sg2im_tpu_torch.ops import prng_kernel as pk
     from sg2im_tpu_torch.ops import relayout as rl
+    from sg2im_tpu_torch.ops import resample as rs
 
     return {"layout_compose_boxes": lk.layout_compose,
             "layout_compose_weights": lk.layout_compose_weights,
@@ -1798,7 +1968,8 @@ def kernel_wrappers():
             "threefry_uniform": pk.threefry_uniform,
             "threefry_split": pk.threefry_split,
             "crn_epilogue": ce.crn_epilogue,
-            "mask_head": mh.mask_head}
+            "mask_head": mh.mask_head,
+            "crn_resample": rs}
 
 
 # K1's counts in read_launches: all its launches, and those with a bf16
@@ -1808,12 +1979,18 @@ K1_COUNTS = ("layout_compose_boxes", "layout_compose_boxes_bf16")
 # (once per step, check_model batch, triptych and step_breakdown), the
 # split of the state's key (once per step), in bf16 E1 in the generator's
 # eval forwards (each checked by train_e1_launches), and M1 in the eval
-# forwards of a generator whose mask head it takes (gconv_dim 128).
+# forwards of a generator whose mask head it takes (gconv_dim 128), and R1
+# in the generator's forwards without a gradient (each checked by
+# train_r1_launches).
 TRAIN_COUNTS = K1_COUNTS + ("threefry_normal", "threefry_split",
-                            "crn_epilogue", "mask_head")
+                            "crn_epilogue", "mask_head", "crn_resample")
 # The CRN stages of the training runs' generators (the CLI's default
 # refinement_network_dims, 1024 to 64).
 TRAIN_CRN_STAGES = 5
+# The G forwards of a step_breakdown that record a gradient (its
+# g_forward_backward section, warm-up and timed); its g_forward section's
+# two record none.
+BREAKDOWN_GRAD_FORWARDS = 2
 
 
 def train_e1_launches(bf16, eval_forwards, stages=TRAIN_CRN_STAGES):
@@ -1823,6 +2000,17 @@ def train_e1_launches(bf16, eval_forwards, stages=TRAIN_CRN_STAGES):
     three) where it computes in bf16; none in float32, and none in a train
     step or step_breakdown, whose forwards run in train mode."""
     return (2 * stages + 1) * eval_forwards if bf16 else 0
+
+
+def train_r1_launches(k1, steps, prints=0, stages=TRAIN_CRN_STAGES):
+    """R1's launches in a training run of ``steps`` train steps and
+    ``prints`` step_breakdowns that launched K1 ``k1`` times (once a G
+    forward): one pyramid and ``stages`` - 1 feats upsamples (all but the
+    first stage's one channel) in each G forward that records no gradient
+    (check_model's batches, the triptychs, the breakdowns' g_forward, a
+    probe's or the gate's), none in a forward that records one (a train
+    step, a breakdown's g_forward_backward)."""
+    return stages * (k1 - steps - BREAKDOWN_GRAD_FORWARDS * prints)
 
 
 def cli_draws(steps, checkpoints, prints, sweeps):
@@ -1840,14 +2028,16 @@ INIT_LAUNCHES: dict = {}
 
 
 def reset_launches():
-    """Every launch count, the conv wrappers' padded copies and the
-    relayout wrappers' unaligned launches, to 0."""
+    """Every launch count, the conv wrappers' padded copies, the
+    relayout wrappers' unaligned launches and R1's layout copies, to 0."""
     from sg2im_tpu_torch.ops import layout_kernel as lk
 
     INIT_LAUNCHES.clear()
     lk.layout_compose.launches_bf16 = 0
     for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
+        if hasattr(wrapper, "layout_copies"):
+            wrapper.layout_copies = 0
         if hasattr(wrapper, "padded_copies"):
             wrapper.padded_copies = 0
         if hasattr(wrapper, "unaligned_launches"):
@@ -2070,6 +2260,9 @@ def phase_vg128(torch, card, launches):
     if path["mask_head"] != 2 * 3 * 4:
         fail(f"f32 and bf16/split launched M1 {path['mask_head']} times in "
              f"6 generates, not 4 a forward")
+    # R1 five times a forward in f32 ('legacy') and bf16/split alike.
+    check_r1("f32 and bf16/split in 6 generates", path,
+             2 * 3 * R1_GENERATE["split"])
 
     # The further CRN modes, each its own path.
     for mode, (opts, needs) in more_modes.items():
@@ -2089,6 +2282,8 @@ def phase_vg128(torch, card, launches):
         if "packed" in mode and path["crn_epilogue"]:
             fail(f"the {mode} path launched E1: 'packed' keeps its chains "
                  f"eager")
+        check_r1(f"the {mode} path in 3 generates", path,
+                 3 * R1_GENERATE[mode.split("/")[1]])
         check_relayout_routes(f"the vg128 {mode} requests")
         engines[mode] = engine
 
@@ -2112,6 +2307,7 @@ def phase_vg128(torch, card, launches):
     if path["mask_head"] != 3 * 4:
         fail(f"the turbo path launched M1 {path['mask_head']} times in 3 "
              f"generates, not 4 a forward")
+    check_r1("the turbo path in 3 generates", path, 3 * R1_TURBO)
     engines["turbo bf16/split"] = turbo
 
     # Agreement with the CPU engines on a small input with the same
@@ -2659,7 +2855,7 @@ def phase_serve(torch, card, launches):
             add_launches(launches, drive_server(
                 torch, "bf16/split", server, vocab, rng, card,
                 {"layout_compose_boxes": 1, "crn_epilogue": 11,
-                 "mask_head": 4}))
+                 "mask_head": 4, "crn_resample": R1_GENERATE["split"]}))
             time_server(torch, server, vocab, rng, card)
             engine = server.engine
             graphs = random_graphs(vocab, 16, rng)
@@ -2700,13 +2896,15 @@ def phase_serve(torch, card, launches):
             add_launches(launches, drive_server(
                 torch, "turbo int8 bf16/split", server, vocab, rng, card,
                 {"layout_compose_boxes": 1, "conv3x3_s8": 4,
-                 "crn_epilogue": 0, "mask_head": 4},
+                 "crn_epilogue": 0, "mask_head": 4,
+                 "crn_resample": R1_TURBO},
                 coalesced_max=TURBO_COALESCED_U8,
                 coalesced_psnr=TURBO_COALESCED_DB))
         with SmokeServer(common + ["--crn_mode", "phase"]) as server:
             path = drive_server(torch, "bf16/phase", server, vocab, rng, card,
                                 {"layout_compose_boxes": 1,
-                                 "crn_epilogue": 11, "mask_head": 4})
+                                 "crn_epilogue": 11, "mask_head": 4,
+                                 "crn_resample": R1_GENERATE["phase"]})
             add_launches(launches, path)
             if path["relayout_d2s"] == 0:
                 fail("the phase server never launched the relayout d2s")
@@ -2957,10 +3155,12 @@ def phase_train(torch, card, launches):
         check_steps_finite(name, metrics)
         steps = warmup + timed
         if (path["layout_compose_boxes"] != steps
-                or path["threefry_split"] != steps):
+                or path["threefry_split"] != steps
+                or path["crn_resample"]):
             fail(f"train {name}: K1 launched {path['layout_compose_boxes']} "
                  f"times, the key's split {path['threefry_split']} times in "
-                 f"{steps} steps")
+                 f"{steps} steps, R1 {path['crn_resample']} times (a train "
+                 f"step records its gradient)")
         line = (f"[train] {name} b{N}: {steps} steps, K1 launches "
                 f"{path['layout_compose_boxes']} (one per G forward)")
         if packed:
@@ -3398,16 +3598,19 @@ def phase_train_cli(torch, card, launches, in_memory, work):
                       if k not in TRAIN_COUNTS and v}
             e1_want = train_e1_launches(mode.startswith("bf16"),
                                         eval_forwards)
+            r1_want = train_r1_launches(k1_want, CLI_STEPS, prints)
             if (k1 != k1_want or others
                     or path["threefry_normal"] != tf_want
                     or path["threefry_split"] != CLI_STEPS
-                    or path["crn_epilogue"] != e1_want):
+                    or path["crn_epilogue"] != e1_want
+                    or path["crn_resample"] != r1_want):
                 fail(f"train CLI {mode}: K1 launched {k1} times, expected "
                      f"{k1_want}; threefry {path['threefry_normal']} times, "
                      f"expected {tf_want}; the key's split "
                      f"{path['threefry_split']} times for {CLI_STEPS} "
                      f"steps; E1 {path['crn_epilogue']} times, expected "
-                     f"{e1_want}; other kernels {others}")
+                     f"{e1_want}; R1 {path['crn_resample']} times, expected "
+                     f"{r1_want}; other kernels {others}")
             losses = _cli_log(full, "train")
             timing = _cli_log(full, "timing")
             bad = [t for t, r in losses.items()
@@ -4080,15 +4283,19 @@ def phase_jax_checkpoint(torch, card, launches, coco_flags, work, sweeps):
         others = {k: v for k, v in path.items()
                   if k not in TRAIN_COUNTS and v}
         k1.append(path["layout_compose_boxes"])
+        r1_want = train_r1_launches(k1[-1], CLI_STEPS - 20,
+                                    CLI_STEPS // 10 - 2)
         if (k1[-1] < CLI_STEPS - 20 or others
                 or path["threefry_normal"] != tf_want
                 or path["threefry_split"] != CLI_STEPS - 20
-                or path["crn_epilogue"]):
+                or path["crn_epilogue"]
+                or path["crn_resample"] != r1_want):
             fail(f"the CLI resuming state.msgpack: K1 launched {k1[-1]} "
                  f"times, threefry {path['threefry_normal']} times, "
                  f"expected {tf_want}, the key's split "
                  f"{path['threefry_split']} times for {CLI_STEPS - 20} "
-                 f"steps; E1 {path['crn_epilogue']} times in float32; "
+                 f"steps; E1 {path['crn_epilogue']} times in float32; R1 "
+                 f"{path['crn_resample']} times, expected {r1_want}; "
                  f"other kernels {others}")
         losses = _cli_log(out, "train")
         _finite_trace("the CLI resuming state.msgpack", losses)
@@ -4152,6 +4359,7 @@ def phase_jax_checkpoint(torch, card, launches, coco_flags, work, sweeps):
 PROOF_ITERS = 250          # each train_proof run (the tool's default 500)
 PROOF_REPEAT_ITERS = 200   # the second f32 run: a prefix of the first
 FIDELITY_ITERS = 400       # trained_fidelity (the tool's default is 3000)
+FIDELITY_CRN_STAGES = 3    # its generator's refinement_network_dims
 # K1 launches of a run's final check_model: two b32 sweeps of 64 samples
 # (train and val) and a triptych of three G calls after each.
 PROOF_SWEEP_K1 = 2 + 2 + 3 * 2
@@ -4256,16 +4464,19 @@ def phase_proofs(torch, card, launches, work):
         # The final check_model's forwards: one a K1 launch.
         e1_want = train_e1_launches(name.startswith("bf16"),
                                     PROOF_SWEEP_K1)
+        r1_want = train_r1_launches(s["iters"] + PROOF_SWEEP_K1, s["iters"])
         if (k1 != s["iters"] + PROOF_SWEEP_K1 or others(path)
                 or path["threefry_normal"] != s["iters"] + PROOF_SWEEP_TF
                 or path["threefry_split"] != s["iters"]
-                or path["crn_epilogue"] != e1_want):
+                or path["crn_epilogue"] != e1_want
+                or path["crn_resample"] != r1_want):
             fail(f"train_proof {name}: K1 launched {k1} times, expected "
                  f"{s['iters'] + PROOF_SWEEP_K1}; threefry "
                  f"{path['threefry_normal']} times, expected "
                  f"{s['iters'] + PROOF_SWEEP_TF}; the key's split "
                  f"{path['threefry_split']} times for {s['iters']} steps; "
                  f"E1 {path['crn_epilogue']} times, expected {e1_want}; "
+                 f"R1 {path['crn_resample']} times, expected {r1_want}; "
                  f"other kernels {others(path)}")
         if "compared_to" in s:
             c = s["compared_to"]
@@ -4320,15 +4531,18 @@ def phase_proofs(torch, card, launches, work):
              f"{trained_fidelity.SEED}: {shares}")
     # Its probe and gate forwards take zero noise: no threefry launch.
     tf = path["threefry_normal"]
+    r1_want = train_r1_launches(FIDELITY_ITERS + PROOF_SWEEP_K1 + 2,
+                                FIDELITY_ITERS, stages=FIDELITY_CRN_STAGES)
     if (k1 != FIDELITY_ITERS + PROOF_SWEEP_K1 + 2 or others(path)
             or tf != FIDELITY_ITERS + PROOF_SWEEP_TF
             or path["threefry_split"] != FIDELITY_ITERS
-            or path["crn_epilogue"]):
+            or path["crn_epilogue"] or path["crn_resample"] != r1_want):
         fail(f"trained_fidelity: K1 launched {k1} times, threefry {tf} "
              f"times (expected {FIDELITY_ITERS + PROOF_SWEEP_TF}), the "
              f"key's split {path['threefry_split']} times, E1 "
-             f"{path['crn_epilogue']} times in float32; other kernels "
-             f"{others(path)}")
+             f"{path['crn_epilogue']} times in float32, R1 "
+             f"{path['crn_resample']} times (expected {r1_want}); other "
+             f"kernels {others(path)}")
 
     rc, wall, _, last = _tool(loader_bench.main, [
         "--proof_report", runs["f32"], "--out", os.path.join(work, "lb")],
@@ -4681,6 +4895,19 @@ def main() -> int:
         ("mask_head", MASK_HEAD_SOURCE, "none (XLA's convolutions)",
          errs["mask_head"], times["mask_head"], times["mask_head_plain"],
          times["mask_head_bound"], times["mask_head_library"]),
+        # No TPU kernel: XLA fused the CRN's pooling and upsampling into
+        # its convolutions.  Timed as vg128's b128 pyramid and four
+        # upsamples summed (each direction apart in the row's extra keys);
+        # its plain version is aten's calls, the library's.
+        ("crn_resample", RESAMPLE_SOURCE, "none (XLA's fusion)",
+         errs["crn_resample"],
+         *(times[f"resample_pyramid_vg128{k}"]
+           + times[f"resample_upsample_vg128{k}"]
+           for k in ("", "_plain")),
+         (times["resample_pyramid_vg128_bound"]
+          + times["resample_upsample_vg128_bound"], "bytes"),
+         times["resample_pyramid_vg128_plain"]
+         + times["resample_upsample_vg128_plain"]),
     ]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,
@@ -4696,6 +4923,9 @@ def main() -> int:
         device_ms=tf_times["split_device"],
         launch_floor_ms=tf_times["empty"],
         launch_floor_device_ms=tf_times["empty_device"])
+    # R1's row: each direction's times at both cells beside its sums.
+    next(k for k in summary["kernels"] if k["name"] == "crn_resample").update(
+        {k: v for k, v in times.items() if k.startswith("resample_")})
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

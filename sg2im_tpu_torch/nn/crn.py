@@ -37,6 +37,13 @@ Everywhere else (the CPU, float32 compute, train mode, a recorded
 gradient, instance norm) and in the int8 tier and 'packed' it runs
 eagerly, op for op, as ``crn_epilogue_ref`` does.
 
+The layout pyramid (every mode) and the nearest-2x upsample of the feats
+('legacy', 'split' and the int8 tier's float stages) take
+``ops/resample``, the Hopper resampling kernel, where its rule says so
+(on the card, bf16 or float32, whole 16-byte vectors of channels, no
+gradient recorded): one launch for the whole pyramid, one an upsample,
+bit-equal to the eager ``avg_pool2d`` and ``interpolate`` they replace.
+
 ``compute_dtype=torch.bfloat16`` runs the convolutions and the tensors
 between them in bf16 while norm and activation run in f32, as the JAX
 package does; the layout pyramid is kept in the compute dtype.  Derived
@@ -73,6 +80,7 @@ from sg2im_tpu_torch.nn.layers import (
     parse_activation,
     upsample_nearest,
 )
+from sg2im_tpu_torch.ops import resample
 from sg2im_tpu_torch.ops.conv_kernel import conv3x3_int8
 from sg2im_tpu_torch.ops.crn_epilogue import (
     add_parts,
@@ -640,12 +648,14 @@ class RefinementNetwork(nn.Module):
             raise ValueError("Too many refinement modules for image size")
 
         def build_pyramid(t):
-            # By successive halving: averages of equal-size blocks compose,
-            # so each level equals pooling the full-resolution tensor.
-            p = [t if compute_dtype is None else t.to(compute_dtype)]
-            for _ in range(n_mods - 1):
-                p.append(avg_pool_2d(p[-1], 2))
-            return p[::-1]
+            # By successive halving, each level rounded to the compute
+            # dtype before the next is pooled from it; on the card in one
+            # launch of the resampling kernel where it takes the tensor.
+            t = t if compute_dtype is None else t.to(compute_dtype)
+            pool = (resample.pool_pyramid
+                    if resample.pyramid_takes_kernel(t, n_mods - 1)
+                    else resample.pool_pyramid_ref)
+            return ([t] + pool(t, n_mods - 1))[::-1]
 
         pyramid = build_pyramid(layout)
         noise_pyramid = (build_pyramid(noise) if noise is not None

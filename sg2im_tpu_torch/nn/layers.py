@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sg2im_tpu_torch.ops import resample
 from sg2im_tpu_torch.parallel import collectives
 
 
@@ -254,11 +255,17 @@ class MLP(nn.Sequential):
 def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
     """Nearest-neighbour upsample of NCHW by an integer factor.
 
-    Integer tensors (the int8 turbo tier) go by index expansion, which
+    A factor of 2 takes the resampling kernel where
+    ``ops/resample.takes_kernel`` says so (on the card, bf16 or float32,
+    whole 16-byte vectors of channels, no gradient recorded).  Integer
+    tensors (the int8 turbo tier) go by index expansion, which
     ``F.interpolate`` does not implement for them; the result is
     channels_last, as the int8 conv kernel reads it."""
     if x.is_floating_point():
-        return F.interpolate(x, scale_factor=factor, mode="nearest")
+        if factor != 2:
+            return F.interpolate(x, scale_factor=factor, mode="nearest")
+        return (resample.upsample2(x) if resample.takes_kernel(x)
+                else resample.upsample2_ref(x))
     N, C, H, W = x.shape
     nhwc = x.permute(0, 2, 3, 1)[:, :, None, :, None, :]
     up = nhwc.expand(N, H, factor, W, factor, C).reshape(

@@ -65,6 +65,13 @@ SOURCES = {
     "mask_head.cu": {
         "sg2im_mask_head_step": [_PTR] * 12,
     },
+    # resample.cu: the pyramid's x, a host array of its levels' pointers,
+    # the plan (ops/resample.PoolPlanStruct), stream; the upsample's x,
+    # out, the plan (UpPlanStruct), stream.
+    "resample.cu": {
+        "sg2im_pool_pyramid": [_PTR] * 4,
+        "sg2im_upsample2": [_PTR] * 4,
+    },
     "threefry.cu": {
         "sg2im_threefry_normal": [_PTR, _PTR, _U32, _U32, _U64] + [_INT] * 10
         + [_U32, _INT, _INT] + [_U32] * 3 + [_F32, _PTR],

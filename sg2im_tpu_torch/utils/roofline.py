@@ -108,6 +108,26 @@ def crn_epilogue_bytes(N, H, W, dims, conv0_addends):
     return nbytes + 6 * N * dims[-1] * H * W
 
 
+def crn_resample_bytes(N, H, W, dims, layout_dim, elem):
+    """Bytes the CRN's 2x resampling of one forward must move
+    (``csrc/resample.cu``), in ``elem``-byte elements: the layout pyramid's
+    level 0 (``layout_dim`` channels at H x W) read once and its pooled
+    levels 1 .. stages - 1 written once; and each stage whose feats
+    (``dims[s - 1]`` channels at H_s / 2 x W_s / 2) are coarser than its
+    layout level and fill whole 16-byte vectors, their coarse read and
+    their 2x upsample written, 5 times the coarse bytes.  The first
+    stage's one-channel feats fill no vector."""
+    n = len(dims)
+    nbytes = elem * N * layout_dim * H * W
+    for level in range(1, n):
+        nbytes += elem * N * layout_dim * (H >> level) * (W >> level)
+    for s in range(1, n):
+        C = dims[s - 1]
+        if C * elem % 16 == 0:
+            nbytes += 5 * elem * N * C * (H >> (n - s)) * (W >> (n - s))
+    return nbytes
+
+
 def mask_head_flops(slots, C, M):
     """Float32 operations of the eval mask head in the phase form
     (``csrc/mask_head.cu``) over ``slots`` object slots of C channels to

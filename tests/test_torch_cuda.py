@@ -356,7 +356,8 @@ def test_crn_epilogue_matches_plain_version(card, name):
 
 def test_crn_epilogue_in_the_crn_stages_and_generate(card):
     """E1 in a 'legacy' and a 'phase' stage against the same stage kept
-    eager, and eleven launches a bf16 forward (none in 'packed')."""
+    eager, and eleven launches a bf16 forward (none in 'packed'); R1's
+    launches in the same generates (five in 'split') and no layout copy."""
     chip_smoke.check_epilogue_stages(torch)
     chip_smoke.check_epilogue_generate(torch)
 
